@@ -1,0 +1,195 @@
+"""PSS matched filter + power: the hand-written CUDA kernel and its plain
+PyTorch version.
+
+Replaces the Pallas kernel `pss_correlate_power_pallas`
+(ltetrigger_tpu/ops/pallas/matched_filter.py) and, in the port, also runs
+pass A of the grid engine (ltetrigger_tpu/models/trigger.py `_group_power`).
+The CUDA source is ltetrigger_tpu_torch/csrc/matched_filter.cu; its header
+gives the design and the bound.
+
+Two entry points over one kernel:
+
+  group_power(buf_re, buf_im, lo, g, dtype)   grid contract (pass A)
+      [*B, N] pair -> [*B, g, 75, 3, 128]: power[.., t, b, r, m] is root r's
+      matched-filter power at stream position lo + 9600 t + 128 b + m;
+      samples at or past N read as zero.
+  pss_correlate_power(window, dtype)          window contract
+      [B, >= 9728] pair -> [B, 3, 9600] (the Pallas kernel's contract).
+
+On a CPU tensor each entry runs its plain PyTorch version; on a CUDA tensor
+it launches the kernel or raises.  `launches` counts kernel launches.
+
+The kernel is compiled with nvcc at first use into ltetrigger_tpu_torch/
+_build/ (keyed by a hash of the sources) and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+from ...ltecore.constants import HALF_FRAME_LENGTH, SYMBOL_SZ
+from .. import correlate
+
+NBLK = correlate.NBLK                    # 75 blocks of 128 per half-frame
+NPOW = correlate.N_ROOTS * SYMBOL_SZ     # 384 power columns per block
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+launches = 0          # kernel launches through either entry point
+_lib = None
+
+
+# ------------------------------------------------------------ plain version
+def group_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
+                      g: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch pass A: one [g*75, 512] @ [512, 768] matmul per lane
+    (the operand is materialized here), then the comp-major square-sum."""
+    batch = buf_re.shape[:-1]
+    span = g * HALF_FRAME_LENGTH + SYMBOL_SZ
+
+    def blocks(comp):
+        s = comp[..., lo:lo + span]
+        if s.shape[-1] < span:
+            s = torch.nn.functional.pad(s, (0, span - s.shape[-1]))
+        return s.reshape(batch + (g * NBLK + 1, SYMBOL_SZ))
+
+    r, i = blocks(buf_re), blocks(buf_im)
+    x = torch.cat([r[..., :-1, :], i[..., :-1, :], r[..., 1:, :],
+                   i[..., 1:, :]], dim=-1)               # [.., g*75, 512]
+    W = correlate.weights_fat(str(buf_re.device))
+    if dtype == torch.bfloat16:
+        x, W = correlate.round_bf16(x), correlate.round_bf16(W)
+    c = x @ W                                            # [.., g*75, 768]
+    p = c[..., :NPOW] ** 2 + c[..., NPOW:] ** 2
+    return p.reshape(batch + (g, NBLK, correlate.N_ROOTS, SYMBOL_SZ))
+
+
+# ------------------------------------------------------------------ build --
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> tuple[pathlib.Path, float]:
+    """Compile csrc/*.cu into one shared library (cached by source hash).
+
+    returns (library path, seconds spent compiling; 0.0 on a cache hit)."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"libltetrigger_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                    *(str(s) for s in srcs)], check=True)
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        fn = lib.mf_group_power
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_t_bf16(device: str) -> torch.Tensor:
+    """The tensor-core body's weights: W_fat transposed to [768, 512] (K
+    contiguous) and rounded to bfloat16."""
+    return correlate.weights_fat(device).T.contiguous().to(torch.bfloat16)
+
+
+def _launch(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
+            dtype) -> torch.Tensor:
+    """Run the kernel: [*B, N] pair -> [*B, m, 384] (m operand rows)."""
+    global launches
+    if buf_re.device.type != "cuda":
+        raise ValueError(f"matched-filter kernel needs CUDA tensors, got "
+                         f"{buf_re.device}")
+    if buf_im.device != buf_re.device or buf_im.shape != buf_re.shape:
+        raise ValueError("re and im must share device and shape")
+    for t in (buf_re, buf_im):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("matched-filter kernel takes contiguous float32")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported matmul dtype {dtype}")
+    n = buf_re.shape[-1]
+    batch = buf_re.shape[:-1]
+    nb = buf_re.numel() // max(n, 1)
+    if n >= 2 ** 31 or nb >= 65536:
+        raise ValueError(f"buffer [{nb}, {n}] exceeds the kernel's grid")
+    lib = _load()
+    out = torch.empty(batch + (m, NPOW), device=buf_re.device,
+                      dtype=torch.float32)
+    W = correlate.weights_fat(str(buf_re.device))
+    Wt = _weights_t_bf16(str(buf_re.device))
+    stream = torch.cuda.current_stream(buf_re.device).cuda_stream
+    rc = lib.mf_group_power(buf_re.data_ptr(), buf_im.data_ptr(),
+                            W.data_ptr(), Wt.data_ptr(), out.data_ptr(), nb,
+                            n, lo, m, int(dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"mf_group_power launch failed: cudaError {rc}")
+    launches += 1
+    return out
+
+
+# ----------------------------------------------------------- entry points --
+def group_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, g: int,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """Pass A power for g grid steps from `lo`: [*B, N] -> [*B, g, 75, 3,
+    128] float32 (see the module docstring)."""
+    if lo < 0:
+        raise ValueError(f"grid start {lo} < 0")
+    if buf_re.device.type == "cpu":
+        return group_power_plain(buf_re, buf_im, lo, g, dtype)
+    out = _launch(buf_re, buf_im, lo, g * NBLK, dtype)
+    return out.reshape(buf_re.shape[:-1] + (g, NBLK, correlate.N_ROOTS,
+                                            SYMBOL_SZ))
+
+
+def pss_correlate_power(window, dtype=torch.bfloat16) -> torch.Tensor:
+    """pair of [B, >= 9728] float32 -> [B, 3, 9600] float32 (the window
+    contract of the Pallas kernel; plain version:
+    correlate.pss_correlate_power_v2)."""
+    wr, wi = window
+    if wr.ndim != 2 or wr.shape[-1] < correlate.V2_WINDOW:
+        raise ValueError(f"window must be [B, >= {correlate.V2_WINDOW}], "
+                         f"got {tuple(wr.shape)}")
+    if wr.device.type == "cpu":
+        return correlate.pss_correlate_power_v2(window, dtype)
+    b = wr.shape[0]
+    out = _launch(wr, wi, 0, NBLK, dtype)                # [B, 75, 384]
+    return out.reshape(b, NBLK, correlate.N_ROOTS, SYMBOL_SZ) \
+        .permute(0, 2, 1, 3).reshape(b, correlate.N_ROOTS,
+                                     correlate.SEARCH_LEN)

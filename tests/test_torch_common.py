@@ -1,0 +1,54 @@
+"""Shared inputs for the PyTorch port's parity tests (tests/test_torch_*).
+
+Every input is built from a numpy seed and `ltecore.synth`; the same arrays
+go to the JAX reference and to the port.
+"""
+
+import numpy as np
+import torch
+
+from ltetrigger_tpu.ltecore import synth
+
+torch.set_num_threads(2)          # tier-1 runs the files in 6 workers
+
+
+def upsample(x: np.ndarray, factor: int) -> np.ndarray:
+    """FFT zero-padding interpolation by an integer factor (complex64)."""
+    F = np.fft.fft(x.astype(np.complex128))
+    n = x.size
+    Fw = np.zeros(n * factor, dtype=np.complex128)
+    Fw[:n // 2] = F[:n // 2]
+    Fw[-n // 2:] = F[-n // 2:]
+    return (np.fft.ifft(Fw) * factor).astype(np.complex64)
+
+
+def noise(rng, n: int, sigma: float = 1.0) -> np.ndarray:
+    return (sigma * (rng.normal(size=n) + 1j * rng.normal(size=n))
+            / np.sqrt(2.0)).astype(np.complex64)
+
+
+def frames(cell_id: int, n: int, **kw) -> np.ndarray:
+    """`n` copies of one synthetic radio frame (complex64)."""
+    return np.tile(synth.synthesize_frame(cell_id, **kw), n) \
+        .astype(np.complex64)
+
+
+def acq_loss_reacq(cell_id: int, seed: int = 1) -> np.ndarray:
+    """Acquisition (5 frames), loss (5 frames of loud noise), then
+    reacquisition (5 frames): 30 half-frames at 1.92 Msps, plus noise."""
+    rng = np.random.default_rng(seed)
+    sig = frames(cell_id, 5, nof_prb_field=50)
+    mid = noise(rng, sig.size, 10.0)
+    x = np.concatenate([sig, mid, sig])
+    return (x + noise(rng, x.size, 0.1)).astype(np.complex64)
+
+
+def engine_buffer(sig: np.ndarray, lookback: int, window: int) -> np.ndarray:
+    """LOOKBACK zeros + signal + WINDOW zeros (the engine's buffer)."""
+    return np.concatenate([np.zeros(lookback, np.complex64), sig,
+                           np.zeros(window, np.complex64)])
+
+
+def to_pair_torch(x: np.ndarray):
+    return (torch.from_numpy(np.ascontiguousarray(x.real, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(x.imag, np.float32)))
