@@ -1,11 +1,18 @@
-"""ltetrigger_tpu/ltecore, shared with the JAX package by path.
+"""ltecore: pure LTE signal-model math (numpy constants + host reference impls).
 
-These are the JAX package's own numpy-only files, loaded under this
-package's name.  Importing them as `ltetrigger_tpu.ltecore` would run
-ltetrigger_tpu/__init__.py, which imports jax; the port imports none.
+This layer owns every sequence, table, and bit-format the sensing chain needs:
+PSS Zadoff-Chu replicas, SSS m-sequences and (m0,m1)->N_id_1 maps, Gold
+scrambling generator matrices, CRS pilots, CRC-16, the tail-biting
+convolutional code with its trellis tables, PBCH rate matching, and MIB
+packing.  It is the first-party replacement for the srsLTE primitives the
+reference links against (SURVEY.md §2.2b).
+
+Everything is numpy / python ints — exhaustively unit-testable, and consumed
+by the ops layer as static constants.
+
+The port's own copy of ltetrigger_tpu/ltecore (same module names);
+tests/test_torch_shared.py holds every table and function equal to the
+JAX package's.
 """
 
-import pathlib
-
-__path__ = [str(pathlib.Path(__file__).resolve().parents[2]
-                / "ltetrigger_tpu" / "ltecore")]
+from . import constants, pss, sss, scrambling, coding, mib, crs  # noqa: F401

@@ -19,6 +19,11 @@ Two entry points over one kernel:
 On a CPU tensor each entry runs its plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises.  `launches` counts kernel launches.
 
+bf16 means: inputs rounded to nearest-even bfloat16, products exact, float32
+accumulation.  float32 inputs run as three TF32 tensor-core products on a
+hi/lo split of both operands (`split_tf32`), which keeps the float32 result
+to ~1e-6 relative; the plain version is one float32 matmul.
+
 The kernel is compiled with nvcc at first use into ltetrigger_tpu_torch/
 _build/ (keyed by a hash of the sources) and bound with ctypes.
 """
@@ -36,7 +41,7 @@ import time
 
 import torch
 
-from ...ltecore.constants import HALF_FRAME_LENGTH, SYMBOL_SZ
+from ...ltecore.constants import SYMBOL_SZ
 from .. import correlate
 
 NBLK = correlate.NBLK                    # 75 blocks of 128 per half-frame
@@ -45,35 +50,44 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = 0          # kernel launches through either entry point
 _lib = None
 
 
 # ------------------------------------------------------------ plain version
-def group_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
-                      g: int, dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch pass A: one [g*75, 512] @ [512, 768] matmul per lane
-    (the operand is materialized here), then the comp-major square-sum."""
+def rows_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
+                     m: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of one kernel launch: [*B, N] pair -> [*B, m,
+    384], row j from the 256 samples at lo + 128 j (zeros past N).  One
+    [m, 512] @ [512, 768] matmul per lane (the operand is materialized
+    here), then the comp-major square-sum."""
     batch = buf_re.shape[:-1]
-    span = g * HALF_FRAME_LENGTH + SYMBOL_SZ
+    span = (m + 1) * SYMBOL_SZ
 
     def blocks(comp):
         s = comp[..., lo:lo + span]
         if s.shape[-1] < span:
             s = torch.nn.functional.pad(s, (0, span - s.shape[-1]))
-        return s.reshape(batch + (g * NBLK + 1, SYMBOL_SZ))
+        return s.reshape(batch + (m + 1, SYMBOL_SZ))
 
     r, i = blocks(buf_re), blocks(buf_im)
     x = torch.cat([r[..., :-1, :], i[..., :-1, :], r[..., 1:, :],
-                   i[..., 1:, :]], dim=-1)               # [.., g*75, 512]
+                   i[..., 1:, :]], dim=-1)               # [.., m, 512]
     W = correlate.weights_fat(str(buf_re.device))
     if dtype == torch.bfloat16:
         x, W = correlate.round_bf16(x), correlate.round_bf16(W)
-    c = x @ W                                            # [.., g*75, 768]
-    p = c[..., :NPOW] ** 2 + c[..., NPOW:] ** 2
-    return p.reshape(batch + (g, NBLK, correlate.N_ROOTS, SYMBOL_SZ))
+    c = x @ W                                            # [.., m, 768]
+    return c[..., :NPOW] ** 2 + c[..., NPOW:] ** 2
+
+
+def group_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
+                      g: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch pass A: `rows_power_plain` over g * 75 rows."""
+    p = rows_power_plain(buf_re, buf_im, lo, g * NBLK, dtype)
+    return p.reshape(buf_re.shape[:-1] + (g, NBLK, correlate.N_ROOTS,
+                                          SYMBOL_SZ))
 
 
 # ------------------------------------------------------------------ build --
@@ -88,6 +102,8 @@ def _nvcc() -> str:
 
 def build() -> tuple[pathlib.Path, float]:
     """Compile csrc/*.cu into one shared library (cached by source hash).
+    The compiler's report (registers, spills, shared memory per kernel) is
+    kept beside it as <library>.log.
 
     returns (library path, seconds spent compiling; 0.0 on a cache hit)."""
     srcs = sorted(CSRC.glob("*.cu"))
@@ -102,8 +118,13 @@ def build() -> tuple[pathlib.Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                    *(str(s) for s in srcs)], check=True)
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           *(str(s) for s in srcs)], capture_output=True,
+                          text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
+                           f"{done.stdout}{done.stderr}")
+    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 
@@ -115,24 +136,47 @@ def _load():
         lib = ctypes.CDLL(str(path))
         fn = lib.mf_group_power
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 -> (hi, lo) with hi + lo == x exactly: hi is x with its low 13
+    mantissa bits cleared (a TF32 number), lo the remainder.  The float32
+    body multiplies x_hi W_hi + x_hi W_lo + x_lo W_hi on the tensor cores,
+    which read the leading 11 mantissa bits of each operand."""
+    hi = (x.view(torch.int32) & -8192).view(torch.float32)
+    return hi, x - hi
+
+
+def weights_by_root(device: str) -> torch.Tensor:
+    """W_fat transposed to [768, 512] (K contiguous) with one root's re and
+    im columns adjacent: row 256 r + 128 c + m is column 384 c + 128 r + m
+    of W_fat (c = 0 re, 1 im; r the root)."""
+    wt = correlate.weights_fat(device).T                 # [2 * 3 * 128, 512]
+    k = wt.shape[-1]
+    return wt.reshape(2, correlate.N_ROOTS, SYMBOL_SZ, k).permute(1, 0, 2, 3) \
+        .reshape(2 * NPOW, k).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
-def _weights_t_bf16(device: str) -> torch.Tensor:
-    """The tensor-core body's weights: W_fat transposed to [768, 512] (K
-    contiguous) and rounded to bfloat16."""
-    return correlate.weights_fat(device).T.contiguous().to(torch.bfloat16)
+def _kernel_weights(device: str, bf16: bool) -> torch.Tensor:
+    """The kernel's weights: `weights_by_root` rounded to bfloat16, or its
+    float32 (hi, lo) split stacked as [2, 768, 512]."""
+    wt = weights_by_root(device)
+    if bf16:
+        return wt.to(torch.bfloat16)
+    return torch.stack(split_tf32(wt)).contiguous()
 
 
-def _launch(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
-            dtype) -> torch.Tensor:
-    """Run the kernel: [*B, N] pair -> [*B, m, 384] (m operand rows)."""
+def rows_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
+               dtype) -> torch.Tensor:
+    """Run the kernel: [*B, N] pair -> [*B, m, 384] (m operand rows; plain
+    version: `rows_power_plain`)."""
     global launches
     if buf_re.device.type != "cuda":
         raise ValueError(f"matched-filter kernel needs CUDA tensors, got "
@@ -148,18 +192,23 @@ def _launch(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
     batch = buf_re.shape[:-1]
     nb = buf_re.numel() // max(n, 1)
     if n >= 2 ** 31 or nb >= 65536:
-        raise ValueError(f"buffer [{nb}, {n}] exceeds the kernel's grid")
+        raise ValueError(f"buffer [{nb}, {n}] exceeds the kernel's range")
     lib = _load()
     out = torch.empty(batch + (m, NPOW), device=buf_re.device,
                       dtype=torch.float32)
-    W = correlate.weights_fat(str(buf_re.device))
-    Wt = _weights_t_bf16(str(buf_re.device))
+    bf16 = int(dtype == torch.bfloat16)
+    wt = _kernel_weights(str(buf_re.device), bool(bf16))
+    # the staged operand: [2 nb, m + 1, 128] bfloat16, or float32 hi and lo
+    scratch = torch.empty(2 * nb * (m + 1) * SYMBOL_SZ * (2 if bf16 else 8),
+                          device=buf_re.device, dtype=torch.uint8)
     stream = torch.cuda.current_stream(buf_re.device).cuda_stream
     rc = lib.mf_group_power(buf_re.data_ptr(), buf_im.data_ptr(),
-                            W.data_ptr(), Wt.data_ptr(), out.data_ptr(), nb,
-                            n, lo, m, int(dtype == torch.bfloat16), stream)
+                            wt.data_ptr(), scratch.data_ptr(),
+                            scratch.numel(), out.data_ptr(), nb, n, lo, m,
+                            bf16, stream)
     if rc != 0:
-        raise RuntimeError(f"mf_group_power launch failed: cudaError {rc}")
+        raise RuntimeError(f"mf_group_power launch failed: error {rc} (a "
+                           f"cudaError, or 20000 + a CUresult)")
     launches += 1
     return out
 
@@ -173,7 +222,7 @@ def group_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, g: int,
         raise ValueError(f"grid start {lo} < 0")
     if buf_re.device.type == "cpu":
         return group_power_plain(buf_re, buf_im, lo, g, dtype)
-    out = _launch(buf_re, buf_im, lo, g * NBLK, dtype)
+    out = rows_power(buf_re, buf_im, lo, g * NBLK, dtype)
     return out.reshape(buf_re.shape[:-1] + (g, NBLK, correlate.N_ROOTS,
                                             SYMBOL_SZ))
 
@@ -189,7 +238,7 @@ def pss_correlate_power(window, dtype=torch.bfloat16) -> torch.Tensor:
     if wr.device.type == "cpu":
         return correlate.pss_correlate_power_v2(window, dtype)
     b = wr.shape[0]
-    out = _launch(wr, wi, 0, NBLK, dtype)                # [B, 75, 384]
+    out = rows_power(wr, wi, 0, NBLK, dtype)                # [B, 75, 384]
     return out.reshape(b, NBLK, correlate.N_ROOTS, SYMBOL_SZ) \
         .permute(0, 2, 1, 3).reshape(b, correlate.N_ROOTS,
                                      correlate.SEARCH_LEN)

@@ -1,11 +1,6 @@
-"""ltetrigger_tpu/runtime, shared with the JAX package by path.
+"""runtime: host-side state around the engine.
 
-These are the JAX package's own numpy-only files, loaded under this
-package's name.  Importing them as `ltetrigger_tpu.runtime` would run
-ltetrigger_tpu/__init__.py, which imports jax; the port imports none.
+The port's own copies of ltetrigger_tpu/runtime's numpy-only modules:
+`cellstore` (the tracked-cell registry) and `chunkbuf` (the streaming chunk
+accumulator).  `native` (the C++ front end's binding) is not copied yet.
 """
-
-import pathlib
-
-__path__ = [str(pathlib.Path(__file__).resolve().parents[2]
-                / "ltetrigger_tpu" / "runtime")]

@@ -1,11 +1,3 @@
-"""ltetrigger_tpu/utils, shared with the JAX package by path.
-
-These are the JAX package's own numpy-only files, loaded under this
-package's name.  Importing them as `ltetrigger_tpu.utils` would run
-ltetrigger_tpu/__init__.py, which imports jax; the port imports none.
-"""
-
-import pathlib
-
-__path__ = [str(pathlib.Path(__file__).resolve().parents[2]
-                / "ltetrigger_tpu" / "utils")]
+"""utils: engineering-notation parsing and profiling helpers (the port's
+own copies of ltetrigger_tpu/utils, with torch.profiler behind `trace` and
+`annotate`)."""

@@ -89,9 +89,10 @@ def test_kernel_wrapper_never_falls_back():
 
 def test_port_imports_no_jax():
     """An AST scan of every file of the port: no jax import and no import
-    of the JAX package (its numpy-only layers are loaded by path, see
-    ltetrigger_tpu_torch/ltecore); then importing the whole port in a fresh
-    interpreter leaves jax and ltetrigger_tpu out of sys.modules."""
+    of the JAX package (the port has its own copies of the numpy-only
+    layers, see tests/test_torch_shared.py); then importing the whole port
+    in a fresh interpreter leaves jax and ltetrigger_tpu out of
+    sys.modules."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 15
     for path in files:
