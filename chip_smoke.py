@@ -21,10 +21,36 @@ Phases, in order; any failure exits non-zero:
   5. one scan_engine dispatch of 128 channels x 100 half-frame steps (about
      1 GB of stream on the card), detections checked in every channel, and a
      small dispatch checked field for field against the CPU run; then the
-     dispatch's time pass by pass, the small launches' host enqueue time,
-     and each launch's device kernels by name (torch.profiler);
-  6. the port must not have imported jax or the JAX package, nor loaded a
+     dispatch's time pass by pass;
+  6. the streaming `Trigger(device="cuda")`: 2 s of a synthetic cell in
+     19200-sample chunks, once per transport f32 / i16 / i8; the f32 events
+     equal those of the same Trigger on the CPU field for field, i16 / i8
+     find the same cell, pipeline=0 and pipeline=2 publish the same; stream
+     samples per second of wall time, the StageTimer summary, kernel launches
+     and host syncs per dispatch, and the most dispatches in flight; the
+     same stream in 307200-sample chunks (deep dispatches); then
+     one dispatch per step bucket (4/8/16/32) with its launches counted, and
+     the kernel against its plain version on the 2.5 M-sample mirror (N=1
+     and N=8 rows, g=32, lo no multiple of 128) and on one CFO bank at B=4;
+  7. `MultiTrigger(8, device="cuda")` over 8 different cells, 2 s each, for
+     i16 and i4: per-stream events equal those of 8 single Triggers on the
+     card; in the i4 run one stream ends early and is continued with
+     fill_gap; samples per second per stream;
+  8. a cell offset by 1.5 subcarriers: `search(cfo_search_range=2)` finds it
+     and plain `search` does not, a `Trigger(cfo_search_range=2)` acquires
+     it, 9 kernel launches per probe, the banks' kernel output against the
+     plain version;
+  9. a checkpoint: `save_state` on the card, `load_state` into a fresh
+     Trigger, and the continued run publishes what the uninterrupted one
+     does;
+ 10. what uses torch.profiler, last, because a process that has run it may
+     launch more slowly afterwards: the small launches' host enqueue time
+     and each launch's device kernels by name; a streaming dispatch's device
+     kernels, device time and idle share;
+ 11. the port must not have imported jax or the JAX package, nor loaded a
      module from a file outside its own directory.
+
+Nothing of phases 1-5 was cut to make room for the later ones.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -38,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -134,6 +161,42 @@ def upsample(x: np.ndarray, factor: int) -> np.ndarray:
     return (np.fft.ifft(Fw) * factor).astype(np.complex64)
 
 
+def stream_cell(synth, cell_id: int, prb: int, seconds: float, seed: int,
+                cfo_subcarriers: float = 0.0) -> np.ndarray:
+    """`seconds` of one synthetic cell at 1.92 Msps plus seeded noise,
+    optionally offset in frequency by `cfo_subcarriers` x 15 kHz."""
+    x = np.tile(synth.synthesize_frame(cell_id, nof_prb_field=prb),
+                int(round(seconds * 100)))
+    if cfo_subcarriers:
+        x = x * np.exp(2j * np.pi * cfo_subcarriers / 128.0
+                       * np.arange(x.size, dtype=np.float64))
+    rng = np.random.default_rng(seed)
+    x = x + 0.05 * (rng.normal(size=x.size) + 1j * rng.normal(size=x.size))
+    return x.astype(np.complex64)
+
+
+def fields(cells, keys=None) -> list:
+    """Cells as dicts without the wall-clock stamp (or only `keys`)."""
+    out = []
+    for c in cells:
+        d = c.to_dict()
+        d.pop("tracking_start_time")
+        out.append({k: d[k] for k in keys} if keys else d)
+    return out
+
+
+def feed(trigger, sig: np.ndarray, chunk: int = 19200):
+    """Every chunk through process(), then flush(): (published, wall s)."""
+    t0 = time.perf_counter()
+    got = []
+    for i in range(0, len(sig), chunk):
+        got += trigger.process(sig[i:i + chunk])
+    got += trigger.flush()
+    if trigger.device.type == "cuda":
+        torch.cuda.synchronize()
+    return got, time.perf_counter() - t0
+
+
 def big_buffer(dev, synth, trig):
     """[C_BIG, LOOKBACK + 100 half-frames + WINDOW] pair: channel c carries
     cell 3c + (c % 3) (all roots, many cell ids) plus seeded noise."""
@@ -170,6 +233,7 @@ def main() -> int:
     from ltetrigger_tpu_torch.apps import cell_search_file as cli
     from ltetrigger_tpu_torch.ltecore import synth
     from ltetrigger_tpu_torch.models import api, trigger as trig
+    from ltetrigger_tpu_torch.models.multi import MultiTrigger
     from ltetrigger_tpu_torch.ops import correlate
     from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
 
@@ -193,7 +257,7 @@ def main() -> int:
     rows = {}
     worst = 0.0
 
-    def case(label, buf, m, dt, kernel, plain):
+    def case(label, buf, m, dt, kernel, plain, at=lo, w_fat=w_fat):
         """One shape and input type: kernel held to plain version, both
         timed, beside the bound and the library matmul."""
         nonlocal worst
@@ -205,7 +269,7 @@ def main() -> int:
         del ref
         ms = cuda_ms(kernel)
         pms = cuda_ms(plain)
-        x = operand(buf, lo, m)
+        x = operand(buf, at, m)
         w = w_fat
         if dt == torch.bfloat16:
             x, w = x.to(dt), w.to(dt)
@@ -296,6 +360,7 @@ def main() -> int:
             out.getvalue()
         assert json.loads(out.getvalue().split("done.")[1])["cell_id"] == 125
     assert launches > 0, "the main path never launched the kernel"
+    path_launches = {"search and CLI": launches}
     log(f"CLI printed FOUND; main path launched the kernel {launches} times")
 
     # ---- 5. one dispatch of 128 channels x 100 steps ----
@@ -368,9 +433,239 @@ def main() -> int:
         f"{', '.join(f'{t:.1f}' for t in t_ab)}; whole dispatch "
         f"{', '.join(f'{t:.1f}' for t in t_all)}")
 
-    # the small launches' host side, then (last, because a process that has
-    # run the profiler may launch more slowly afterwards) each launch's
-    # device kernels by name
+    # ---- 6. the streaming Trigger ----
+    def counted(run):
+        """run() with the launch and host-sync counts set to 0 before it:
+        (result, kernel launches, host syncs by name)."""
+        mf.launches = 0
+        trig.host_syncs.clear()
+        res = run()
+        return res, mf.launches, dict(trig.host_syncs)
+
+    def dispatches(t) -> int:
+        return t.timer.summary()["scan"]["count"]
+
+    sig = stream_cell(synth, 125, 50, 2.0, seed=11)
+    feed(api.Trigger(psr_threshold=4, device="cuda"), sig[:20 * 19200])
+    events = {}
+    path_launches["Trigger"] = 0
+    for transport in ("f32", "i16", "i8"):
+        t = api.Trigger(psr_threshold=4, transport=transport, device="cuda")
+        (got, wall), n_launch, syncs = counted(lambda: feed(t, sig))
+        n_disp = dispatches(t)
+        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        assert got and t.tracking[125 % 3], transport
+        events[transport] = got
+        path_launches["Trigger"] += n_launch
+        log(f"Trigger {transport}: {sig.size / wall / 1e6:.3f} M samples/s "
+            f"of wall time ({sig.size} samples in {wall * 1e3:.1f} ms), "
+            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
+            f"and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
+                                for k, v in sorted(syncs.items()))
+            + f" host syncs a dispatch, at most {t.max_in_flight} "
+            f"dispatch(es) in flight; stages (mean ms x count): "
+            + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                        for k, v in t.timer.summary().items())
+            + f" [{smi}]")
+    on_cpu, _ = feed(api.Trigger(psr_threshold=4, transport="f32",
+                                 device="cpu"), sig)
+    assert fields(events["f32"]) == fields(on_cpu) and on_cpu, \
+        (fields(events["f32"]), fields(on_cpu))
+    decisive = ("cell_id", "nof_prb", "nof_tx_ports", "cp_len")
+    for transport in ("i16", "i8"):
+        assert fields(events[transport], decisive) \
+            == fields(on_cpu, decisive), transport
+    t_sync = api.Trigger(psr_threshold=4, transport="f32", pipeline=0,
+                         device="cuda")
+    got_sync, wall = feed(t_sync, sig)
+    assert fields(got_sync) == fields(events["f32"])
+    log(f"Trigger f32 on the card = on the CPU, field for field "
+        f"({fields(on_cpu)}); i16 and i8 find the same cell; pipeline=0 "
+        f"publishes the same at {sig.size / wall / 1e6:.3f} M samples/s, at "
+        f"most {t_sync.max_in_flight} in flight [{smi}]")
+
+    # the same stream in chunks of 32 half-frames: deep dispatches
+    t_deep = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+    (got_deep, wall), n_launch, syncs = counted(
+        lambda: feed(t_deep, sig, chunk=32 * 9600))
+    assert fields(got_deep) == fields(events["f32"])
+    assert n_launch == dispatches(t_deep)
+    path_launches["Trigger"] += n_launch
+    log(f"Trigger f32 fed 307200-sample chunks: "
+        f"{sig.size / wall / 1e6:.3f} M samples/s of wall time, "
+        f"{n_launch} dispatches of 1 kernel launch, "
+        f"{sum(syncs.values()) / n_launch:.2f} host syncs a dispatch, at "
+        f"most {t_deep.max_in_flight} in flight; stages (mean ms x count): "
+        + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                    for k, v in t_deep.timer.summary().items())
+        + f" [{smi}]")
+
+    # every host wait of a few dispatches, as PyTorch itself reports them
+    t = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+    feed(t, sig[:10 * 19200])
+    n0 = dispatches(t)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(10, 20):
+            t.process(sig[i * 19200:(i + 1) * 19200])
+    torch.cuda.set_sync_debug_mode("default")
+    t.flush()
+    log(f"sync debug mode: {len(caught)} synchronizing calls reported over "
+        f"{dispatches(t) - n0} dispatches while tracking")
+
+    # one dispatch per step bucket on the mirror's shape, N=1 and N=8, and
+    # the kernel against its plain version there: a 2.5 M-sample row, lo no
+    # multiple of 128, 32 x 75 rows
+    cap = t._cap
+    at = trig.LOOKBACK + 37 * 9600 + 77
+    for n_rows in (1, 8):
+        g = torch.Generator(device=dev).manual_seed(n_rows)
+        mirror = tuple(torch.randn((n_rows, cap), generator=g, device=dev)
+                       for _ in range(2))
+        per_bucket = {}
+        for steps in (4, 8, 16, 32):
+            n0 = mf.launches
+            api._stream_scan(mirror, trig.init_state(
+                start_pos=at, batch=(n_rows,), device=dev), 4.0, cap, 0,
+                steps, trig.DEFAULT_TRACK_AFTER, trig.DEFAULT_TRACK_EVERY,
+                grid0=at)
+            per_bucket[steps] = mf.launches - n0
+        assert set(per_bucket.values()) == {1}, per_bucket
+        log(f"mirror N={n_rows}: kernel launches per dispatch by step "
+            f"bucket {per_bucket}")
+        case(f"mirror N={n_rows} g=32", mirror, 32 * 75, torch.bfloat16,
+             lambda: mf.group_power(*mirror, at, 32, torch.bfloat16),
+             lambda: mf.group_power_plain(*mirror, at, 32, torch.bfloat16),
+             at=at)
+        del mirror
+    probe_win = tuple(c[:4, lo:lo + correlate.V2_WINDOW].contiguous()
+                      for c in big)
+    case("probe bin 1.5, window B=4", tuple(c[:4] for c in big), 75,
+         torch.bfloat16,
+         lambda: mf.pss_correlate_power(probe_win, torch.bfloat16, 1.5),
+         lambda: correlate.pss_correlate_power_cfo_bins(
+             probe_win, (1.5,), torch.bfloat16)[:, 0],
+         w_fat=correlate.weights_fat("cuda", 1.5))
+
+    # ---- 7. MultiTrigger over 8 streams ----
+    cells8 = ((10, 6), (41, 15), (72, 25), (103, 50), (134, 75), (165, 100),
+              (196, 25), (227, 50))
+    sigs = [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
+            for i, (cid, prb) in enumerate(cells8)]
+    singles = []
+    for s in sigs:
+        got, _ = feed(api.Trigger(psr_threshold=4, transport="i16",
+                                  device="cuda"), s)
+        singles.append(fields(got))
+    assert [s[0]["cell_id"] for s in singles] == [c for c, _ in cells8], \
+        singles
+    path_launches["MultiTrigger"] = 0
+    for transport in ("i16", "i4"):
+        m = MultiTrigger(8, psr_threshold=4, transport=transport,
+                         device="cuda")
+        half = sigs[0].size // 2 if transport == "i4" else sigs[0].size
+
+        def drive():
+            """All 8 streams in step; past `half`, stream 7 has ended and
+            is continued with fill_gap."""
+            t0 = time.perf_counter()
+            got = []
+            for i in range(0, sigs[0].size, 19200):
+                if i < half:
+                    got += m.process_all([s[i:i + 19200] for s in sigs])
+                    continue
+                for k in range(7):
+                    got += m.process(k, sigs[k][i:i + 19200])
+                got += m.fill_gap(7, 19200)
+            got += m.flush()
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        (got, wall), n_launch, syncs = counted(drive)
+        n_disp = dispatches(m)
+        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        path_launches["MultiTrigger"] += n_launch
+        keys = None if transport == "i16" else decisive
+        for k in range(8):
+            mine = fields([c for n, c in got if n == k], keys)
+            want = [{kk: d[kk] for kk in keys} if keys else d
+                    for d in singles[k]]
+            if transport == "i4" and k == 7:    # silence after `half`
+                assert mine[:1] == want[:1], (k, mine, want)
+            else:
+                assert mine == want, (transport, k, mine, want)
+        assert int(m.backlog.max()) <= 9600, m.backlog
+        log(f"MultiTrigger(8) {transport}: "
+            f"{sigs[0].size / wall / 1e6:.3f} M samples/s per stream of wall "
+            f"time ({8 * sigs[0].size / wall / 1e6:.3f} M in all), "
+            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
+            f"a dispatch, at most {m.max_in_flight} in flight; per-stream "
+            f"events equal 8 single Triggers'"
+            + ("; stream 7 ended at 1 s and was continued with fill_gap, "
+               "the group kept flowing" if transport == "i4" else "")
+            + "; stages (mean ms x count): "
+            + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                        for k, v in m.timer.summary().items())
+            + f" [{smi}]")
+
+    # ---- 8. a cell 1.5 subcarriers (22.5 kHz) off ----
+    off = stream_cell(synth, 200, 50, 1.0, seed=31, cfo_subcarriers=1.5)
+    assert api.search(off, 1.92e6, max_seconds=0.5, device="cuda") == []
+    found, n_launch, _ = counted(lambda: api.search(
+        off, 1.92e6, max_seconds=0.5, cfo_search_range=2, device="cuda"))
+    assert found and found[0].cell_id == 200 and found[0].nof_prb == 50, found
+    assert n_launch >= 10, n_launch
+    log(f"search(cfo_search_range=2) finds cell 200 at +1.5 subcarriers, "
+        f"plain search does not; {n_launch} kernel launches (9 probe bins "
+        f"+ the scan)")
+    path_launches["CFO probe"] = n_launch
+    t = api.Trigger(psr_threshold=4, cfo_search_range=2, device="cuda")
+    (got, _), n_launch, syncs = counted(lambda: feed(t, off))
+    probes = syncs.get("probe", 0)
+    assert got and got[0].cell_id == 200 and t._cfo_bins[0] == 3, \
+        (got, t._cfo_bins)
+    assert probes > 0 and n_launch == dispatches(t) + 9 * probes, \
+        (n_launch, dispatches(t), probes)
+    path_launches["CFO probe"] += n_launch
+    log(f"Trigger(cfo_search_range=2) acquires it at bin "
+        f"{t._cfo_bins[0] / 2}: {probes} probe(s) of 9 kernel launches, "
+        f"{dispatches(t)} dispatches of 1")
+    bins = api._probe_bins(2)
+    got = mf.pss_correlate_power_cfo_bins(probe_win, bins)
+    ref = correlate.pss_correlate_power_cfo_bins(probe_win, bins)
+    torch.testing.assert_close(got, ref, **TOL)
+    worst = max(worst, (got - ref).abs().max().item())
+    log(f"the 9 banks at B=4: kernel equals plain version "
+        f"{tuple(got.shape)}")
+    del got, ref
+
+    # ---- 9. checkpoint on the card ----
+    rng = np.random.default_rng(42)
+    loud = (3.0 * (rng.normal(size=40 * 19200)
+                   + 1j * rng.normal(size=40 * 19200))).astype(np.complex64)
+    two = np.concatenate([stream_cell(synth, 125, 50, 0.6, seed=41), loud,
+                          stream_cell(synth, 300, 25, 1.0, seed=43)])
+    cut = 45 * 19200
+    whole = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+    before, _ = feed(whole, two[:cut])
+    after, _ = feed(whole, two[cut:])
+    first = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+    feed(first, two[:cut])
+    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        first.save_state(f"{tmp}/ckpt.npz")
+        second = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+        second.load_state(f"{tmp}/ckpt.npz")
+    resumed, _ = feed(second, two[cut:])
+    assert fields(resumed) == fields(after) and after, (resumed, after)
+    np.testing.assert_allclose(second.mean_psr, whole.mean_psr, rtol=1e-4)
+    assert (second.tracking_score == whole.tracking_score).all()
+    log(f"checkpoint: the Trigger resumed from save_state publishes what "
+        f"the uninterrupted one does ({fields(after, decisive)} after "
+        f"{fields(before, decisive)})")
+
+    # ---- 10. under the profiler: the small launches' host side, then each
+    # launch's device kernels by name ----
     shapes = ((f"grid C={C_BIG} g=25",
                lambda dt: mf.group_power(*big, lo, 25, dt)),
               ("grid C=1 g=25", lambda dt: mf.group_power(*small, lo, 25, dt)),
@@ -387,7 +682,30 @@ def main() -> int:
                 + (f"; host enqueue {host[(label, dt)]:.1f} us a call"
                    if (label, dt) in host else ""))
 
-    # ---- 6. nothing of JAX ----
+    # a streaming dispatch on the device's side: kernels and busy time
+    t = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
+    feed(t, sig[:40 * 19200])
+    n0 = dispatches(t)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(40, 60):
+            t.process(sig[i * 19200:(i + 1) * 19200])
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    n_disp = dispatches(t) - n0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev_events) / 1e3
+    log(f"Trigger f32 under torch.profiler, {n_disp} dispatches while "
+        f"tracking: {sum(e.count for e in dev_events) / n_disp:.0f} device "
+        f"kernels and copies a dispatch, {busy / n_disp:.3f} ms of device "
+        f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
+        f"idle share {1 - busy / wall:.3f} [{smi}]")
+
+    # ---- 11. nothing of JAX ----
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "ltetrigger_tpu")]
     assert not bad, f"imported {bad[:5]}"
@@ -409,13 +727,15 @@ def main() -> int:
         "route": "cuda",
         "source": "ltetrigger_tpu_torch/csrc/matched_filter.cu",
         "replaces": "ltetrigger_tpu/ops/pallas/matched_filter.py:59",
-        "launches": launches,
+        "launches": sum(path_launches.values()),
+        "launches_by_path": path_launches,
         "max_abs_err": worst,
         "ms": c128["ms"],
         "plain_ms": c128["plain_ms"],
         "bound_ms": c128["bound_ms"],
         "bound_by": c128["bound_by"],
         "library_ms": c128["library_ms"],
+        "shapes": list(rows.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,10 +19,16 @@ Sample extraction is plain indexing: the JAX package's dense one-hot
 extraction exists only because TPU gathers are slow.  The engine reads the
 buffer as if it were zero-extended past its end, as the JAX engine pads it.
 
-Host syncs (each a `.item()` or host copy; a later PR can count them):
-  * scan_pass reads the grid start from `state.pos` once per dispatch;
-  * _mib_postpass gates on `any step emitted` and `any candidate captured`;
-  * _decode_candidates picks the CP pipeline from the candidates' CPs.
+Host syncs (each waits for the card and reads a value; `host_syncs` counts
+them by name):
+  * "grid": scan_pass reads the grid start from `state.pos`, unless the
+    caller passes it as `grid0` (the streaming classes do);
+  * "emit", "capture": _mib_postpass gates on `any step emitted` and `any
+    candidate captured`;
+  * "cp": _decode_candidates picks the CP pipeline from the candidates' CPs
+    (two reads);
+  * "probe": the streaming classes (models/api.py) read the CFO probe's
+    best bin.
 
 All three N_id_2 hypotheses are a trailing [R] axis; channels are leading
 batch axes of the buffer and of every state field.
@@ -30,6 +36,7 @@ batch axes of the buffer and of every state field.
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 from typing import NamedTuple
@@ -58,6 +65,8 @@ SEG_OFF = SLOT_LENGTH - SEG
 # pass C reads up to this far past the last grid step; the JAX engine pads
 # its buffer by n_steps * 9600 + this many zeros
 _PAD_TAIL = 640
+
+host_syncs = collections.Counter()      # host reads of device values, by name
 
 
 class TriggerState(NamedTuple):
@@ -148,7 +157,12 @@ def init_state(start_pos: int = LOOKBACK, batch: tuple = (),
 
 def state_from_numpy(d: dict, device="cpu") -> TriggerState:
     """The JAX package's TriggerState as numpy arrays ({field: array}) ->
-    the port's TriggerState on `device`."""
+    the port's TriggerState on `device`.  A missing `chest` (checkpoints
+    older than the channel-estimate telemetry) reads as zeros."""
+    d = dict(d)
+    batch = np.asarray(d["pos"]).shape[:-1]
+    d.setdefault("chest", np.zeros(batch + _STATE_SHAPES["chest"][0],
+                                   np.float32))
     return TriggerState(**{
         f: torch.tensor(np.asarray(d[f]), dtype=dt, device=device)
         for f, (_, dt) in _STATE_SHAPES.items()})
@@ -270,7 +284,7 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
               psr_threshold: float,
               track_after: int = DEFAULT_TRACK_AFTER,
               track_every: int = DEFAULT_TRACK_EVERY,
-              n_valid: int | None = None):
+              n_valid: int | None = None, grid0: int | None = None):
     """Passes A+B: correlate and scan `n_steps` half-frame steps.
 
     buffer: pair of [..., N] float32 holding >= LOOKBACK samples (or zeros)
@@ -279,6 +293,9 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
         pos entries equal (the grid is shared).
     n_valid: logical end of data (default N); a step is active when its
         correlator window [grid, grid + 9728) fits inside it.
+    grid0: the caller's promise that every `state.pos` entry equals this
+        host integer; without it the grid start is read back from the
+        device, which waits for all work queued before this call.
     returns: (final_state, RawStepOutput stacked [n_steps, ...]).
     """
     n = buffer[0].shape[-1]
@@ -287,7 +304,9 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
     batch = math.prod(buffer[0].shape[:-1]) or 1
     g = _pick_group(n_steps, batch)
     nbatch = buffer[0].ndim - 1
-    grid0 = int(state.pos.reshape(-1)[0])       # host sync: the grid start
+    if grid0 is None:
+        host_syncs["grid"] += 1
+        grid0 = int(state.pos.reshape(-1)[0])
     thresh = float(np.float32(psr_threshold))
 
     zero_b = torch.zeros_like(state.tracking)
@@ -308,16 +327,15 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
                                       track_after, track_every)
             else:
                 o = {"emit": zero_b, "lost": zero_b, "consumed": zero_i}
-            rows.append((grid, active, state.peak, state.psr, state.score,
-                         state.tracking, o["emit"], o["lost"],
-                         o["consumed"]))
-    dev = buffer[0].device
-    cols = list(zip(*rows))
+            rows.append((state.peak, state.psr, state.score, state.tracking,
+                         o["emit"], o["lost"], o["consumed"]))
+    # the grid of every step from host integers: no copy to the device
+    steps = torch.arange(n_steps, dtype=torch.int32, device=buffer[0].device)
+    grids = grid0 + HALF_FRAME_LENGTH * steps
     raw = RawStepOutput(
-        grid=torch.tensor(cols[0], dtype=torch.int32, device=dev),
-        active=torch.tensor(cols[1], dtype=torch.bool, device=dev),
+        grid=grids, active=grids + correlate.V2_WINDOW <= n_valid,
         **{f: torch.stack(c) for f, c in
-           zip(RawStepOutput._fields[2:], cols[2:])})
+           zip(RawStepOutput._fields[2:], zip(*rows))})
     return state, raw
 
 
@@ -442,6 +460,7 @@ def _decode_candidates(state0: TriggerState, buffer: cplx.Pair,
 
     # one CP pipeline when every valid candidate agrees (host sync), both
     # otherwise
+    host_syncs["cp"] += 2
     all_norm = bool(torch.all(cand_cp | ~valid))
     all_ext = bool(torch.all((~cand_cp) | ~valid))
     if all_norm or all_ext:
@@ -506,7 +525,8 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
     zero_i = torch.zeros(shape, dtype=torch.int32, device=dev)
     zero_b = torch.zeros(shape, dtype=torch.bool, device=dev)
 
-    if not bool(raw.emit.any()):        # host sync: nothing emitted
+    host_syncs["emit"] += 1
+    if not bool(raw.emit.any()):        # nothing emitted
         mean0 = _ring_mean(state0.cfo_ring, state0.cfo_count)
         mid_final = final
         track_event, lost_e = zero_b, zero_b
@@ -522,8 +542,7 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
                _read(buffer[1], st0 + SEG_OFF, SEG, lead=1))
 
         # ---- CFO estimate (on the PSS symbol) + ring recurrence ----
-        reps = tuple(torch.from_numpy(a).to(dev)
-                     for a in cfo_ops.replica_pairs())
+        reps = cfo_ops.on_device("time", str(dev))
         pss_sym = cplx.index(seg, (..., slice(SEG - SYMBOL_SZ, SEG)))
         est = cfo_ops.cfo_estimate(pss_sym, reps)       # [S, .., R]
         push = raw.emit & raw.tracking
@@ -552,10 +571,8 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
         lp = torch.clamp(last_push, min=0)[None, ..., None]
         sym = tuple(torch.take_along_dim(
             comp[..., SEG - SYMBOL_SZ:], lp, dim=0)[0] for comp in sf)
-        fr62, fi62 = cfo_ops.chest_replicas()
         chv = cplx.mul_conj(dft.dft_sync(sym),
-                            (torch.from_numpy(fr62).to(dev),
-                             torch.from_numpy(fi62).to(dev)))
+                            cfo_ops.on_device("freq", str(dev)))
         chest_f = torch.where((last_push >= 0)[..., None, None],
                               torch.stack(chv, dim=-1), state0.chest)
 
@@ -582,7 +599,8 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
         cand_freq = scatter(freq)
         valid = torch.arange(k, device=dev) < cnt[..., None]
 
-        if bool(cnt.sum() > 0):         # host sync: any candidate captured
+        host_syncs["capture"] += 1
+        if bool(cnt.sum() > 0):         # any candidate captured
             (found, prb_rk, ports_rk, pext_rk, pres_rk, sfn_rk,
              acc_f, n_f, cell_f) = _decode_candidates(
                 state0, buffer, cand_start, cand_freq, cand_cell, cand_cp,
@@ -685,7 +703,7 @@ def scan_engine(buffer: cplx.Pair, state: TriggerState, n_steps: int,
                 track_after: int = DEFAULT_TRACK_AFTER,
                 track_every: int = DEFAULT_TRACK_EVERY,
                 n_valid: int | None = None, combine: bool = True,
-                data_valid: int | None = None):
+                data_valid: int | None = None, grid0: int | None = None):
     """Scan `n_steps` half-frame steps over a stream buffer, then
     batch-decode the captured MIB candidates.
 
@@ -693,7 +711,7 @@ def scan_engine(buffer: cplx.Pair, state: TriggerState, n_steps: int,
     zero-extended by n_steps * 9600 + 640 samples (the JAX engine's pad).
     n_valid bounds step OWNERSHIP (which grid steps run); data_valid bounds
     readable DATA for candidate reads (defaults to n_valid).  Both default
-    to the zero-extended length, as in the JAX engine.
+    to the zero-extended length, as in the JAX engine.  grid0: see scan_pass.
     returns: (final_state, StepOutput stacked [n_steps, ...])
     """
     torch.backends.cuda.matmul.allow_tf32 = False   # DFT/SSS in full f32
@@ -701,7 +719,8 @@ def scan_engine(buffer: cplx.Pair, state: TriggerState, n_steps: int,
         n_valid = buffer[0].shape[-1] + n_steps * HALF_FRAME_LENGTH \
             + _PAD_TAIL
     final, raw = scan_pass(buffer, state, n_steps, psr_threshold,
-                           track_after, track_every, n_valid=n_valid)
+                           track_after, track_every, n_valid=n_valid,
+                           grid0=grid0)
     if data_valid is None:
         data_valid = n_valid
     return _mib_postpass(state, final, raw, buffer, data_valid=data_valid,

@@ -29,6 +29,15 @@ def chest_replicas():
     return cplx.const(pssmod.pss_freq_occupied())
 
 
+@functools.lru_cache(maxsize=None)
+def on_device(which: str, device: str) -> cplx.Pair:
+    """`replica_pairs` ("time") or `chest_replicas` ("freq") as tensors on
+    `device`, copied there once: a copy from pageable host memory waits for
+    all work queued on the device."""
+    pair = replica_pairs() if which == "time" else chest_replicas()
+    return tuple(torch.from_numpy(a).to(device) for a in pair)
+
+
 def cfo_estimate(pss_symbol: cplx.Pair, replica: cplx.Pair) -> torch.Tensor:
     """CFO in subcarrier-spacing units from a received 128-sample PSS symbol.
 

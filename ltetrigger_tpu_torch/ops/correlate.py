@@ -32,14 +32,22 @@ V2_WINDOW = HALF_FRAME_LENGTH + SYMBOL_SZ        # 9728 samples read
 
 
 @functools.lru_cache(maxsize=None)
-def _toeplitz_weights():
+def _toeplitz_weights(cfo_bin: float = 0):
     """(WL, WU): [256, 768] float32 each.
 
     Contraction axis: [x_re block (128), x_im block (128)].
     Output axis: [root, comp, p] flattened as root * 256 + comp * 128 + p
     with comp 0 = re, 1 = im.
+
+    cfo_bin != 0 builds the bank for replicas shifted by that many
+    subcarrier spacings (replica_b[n] = rep[n] * exp(2j*pi*b*n/128)); the
+    integer-CFO probe uses half-integer bins.
     """
-    rr, ri = cplx.const(pssmod.pss_time())       # [3, 128]
+    reps = pssmod.pss_time()                     # [3, 128] complex
+    if cfo_bin:
+        n = np.arange(SYMBOL_SZ)
+        reps = reps * np.exp(2j * np.pi * cfo_bin * n / SYMBOL_SZ)
+    rr, ri = cplx.const(reps)                    # [3, 128]
     WL = np.zeros((2, 128, N_ROOTS, 2, 128), dtype=np.float32)
     WU = np.zeros((2, 128, N_ROOTS, 2, 128), dtype=np.float32)
     q = np.arange(128)
@@ -61,13 +69,14 @@ def _toeplitz_weights():
 
 
 @functools.lru_cache(maxsize=None)
-def _toeplitz_weights_fat():
-    """[512, 768] float32: the grid engine's one-matmul weight bank.
+def _toeplitz_weights_fat(cfo_bin: float = 0):
+    """[512, 768] float32: the grid engine's one-matmul weight bank (of the
+    replicas shifted by `cfo_bin` subcarriers, as in `_toeplitz_weights`).
 
     Contraction axis: [x0_re | x0_im | x1_re | x1_im] (x1 = x0 shifted one
     128-block).  Output axis COMP-MAJOR: [comp, root, p], so the power is
     the square-sum of two contiguous 384-column halves."""
-    WL, WU = _toeplitz_weights()
+    WL, WU = _toeplitz_weights(cfo_bin)
 
     def cm(W):
         W5 = W.reshape(2, SYMBOL_SZ, N_ROOTS, 2, SYMBOL_SZ)
@@ -77,15 +86,29 @@ def _toeplitz_weights_fat():
 
 
 @functools.lru_cache(maxsize=None)
-def weights_fat(device: str) -> torch.Tensor:
+def weights_fat(device: str, cfo_bin: float = 0) -> torch.Tensor:
     """`_toeplitz_weights_fat` as a float32 tensor on `device` (cached)."""
-    return torch.from_numpy(_toeplitz_weights_fat()).to(device)
+    return torch.from_numpy(_toeplitz_weights_fat(cfo_bin)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
-def _weights_lu(device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    WL, WU = _toeplitz_weights()
+def _weights_lu(device: str, bins: tuple = (0,)) \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """(WL, WU) of every bin in `bins` side by side: [256, len(bins) * 768]."""
+    WL, WU = (np.concatenate([_toeplitz_weights(b)[i] for b in bins], axis=1)
+              for i in (0, 1))
     return torch.from_numpy(WL).to(device), torch.from_numpy(WU).to(device)
+
+
+def _window_blocks(window: cplx.Pair):
+    """(x0, x1): the window's 75 blocks [re | im] and the same one block
+    later, [..., 75, 256] each."""
+    wr, wi = window
+    batch = wr.shape[:-1]
+    return tuple(torch.cat(
+        [wr[..., a:a + HALF_FRAME_LENGTH].reshape(batch + (NBLK, SYMBOL_SZ)),
+         wi[..., a:a + HALF_FRAME_LENGTH].reshape(batch + (NBLK, SYMBOL_SZ))],
+        dim=-1) for a in (0, SYMBOL_SZ))
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -110,23 +133,34 @@ def pss_correlate_power_v2(window: cplx.Pair,
         float32 accumulation
     returns: [..., 3, SEARCH_LEN] float32
     """
-    wr, wi = window
-    batch = wr.shape[:-1]
-    x0 = torch.cat(
-        [wr[..., :HALF_FRAME_LENGTH].reshape(batch + (NBLK, SYMBOL_SZ)),
-         wi[..., :HALF_FRAME_LENGTH].reshape(batch + (NBLK, SYMBOL_SZ))],
-        dim=-1)                                      # [..., 75, 256]
-    x1 = torch.cat(
-        [wr[..., SYMBOL_SZ:V2_WINDOW].reshape(batch + (NBLK, SYMBOL_SZ)),
-         wi[..., SYMBOL_SZ:V2_WINDOW].reshape(batch + (NBLK, SYMBOL_SZ))],
-        dim=-1)
-    WL, WU = _weights_lu(str(wr.device))
+    return pss_correlate_power_cfo_bins(window, (0,), matmul_dtype)[..., 0,
+                                                                   :, :]
+
+
+def pss_correlate_power_cfo_bins(window: cplx.Pair,
+                                 bins=(-2, -1, 0, 1, 2),
+                                 matmul_dtype=torch.bfloat16) -> torch.Tensor:
+    """Correlation power against replica banks shifted by `bins` subcarrier
+    spacings: every bin is more output channels of the same two matmuls.
+    Finds cells whose carrier offset exceeds the matched filter's tolerance
+    (~0.3 subcarrier).
+
+    The plain PyTorch version of ops/kernels/matched_filter.
+    pss_correlate_power_cfo_bins, which runs one kernel launch per bin.
+
+    window: pair of [..., >= V2_WINDOW] float32
+    returns: [..., len(bins), 3, SEARCH_LEN] float32
+    """
+    batch = window[0].shape[:-1]
+    x0, x1 = _window_blocks(window)                  # [..., 75, 256]
+    WL, WU = _weights_lu(str(window[0].device), tuple(bins))
     if matmul_dtype == torch.bfloat16:
         x0, x1, WL, WU = (round_bf16(a) for a in (x0, x1, WL, WU))
-    c = x0 @ WL + x1 @ WU                            # [..., 75, 768]
-    c = c.reshape(batch + (NBLK, N_ROOTS, 2, SYMBOL_SZ))
-    power = c[..., 0, :] ** 2 + c[..., 1, :] ** 2    # [..., 75, 3, 128]
-    return power.movedim(-3, -2).reshape(batch + (N_ROOTS, SEARCH_LEN))
+    c = x0 @ WL + x1 @ WU                            # [..., 75, bins * 768]
+    c = c.reshape(batch + (NBLK, len(bins), N_ROOTS, 2, SYMBOL_SZ))
+    power = c[..., 0, :] ** 2 + c[..., 1, :] ** 2    # [.., 75, bins, 3, 128]
+    return power.movedim(-4, -2).reshape(batch + (len(bins), N_ROOTS,
+                                                  SEARCH_LEN))
 
 
 def peak_and_psr(power: torch.Tensor, lobe_limit: int = 64):

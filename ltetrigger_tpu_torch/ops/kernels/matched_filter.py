@@ -7,7 +7,7 @@ pass A of the grid engine (ltetrigger_tpu/models/trigger.py `_group_power`).
 The CUDA source is ltetrigger_tpu_torch/csrc/matched_filter.cu; its header
 gives the design and the bound.
 
-Two entry points over one kernel:
+Three entry points over one kernel:
 
   group_power(buf_re, buf_im, lo, g, dtype)   grid contract (pass A)
       [*B, N] pair -> [*B, g, 75, 3, 128]: power[.., t, b, r, m] is root r's
@@ -15,6 +15,10 @@ Two entry points over one kernel:
       samples at or past N read as zero.
   pss_correlate_power(window, dtype)          window contract
       [B, >= 9728] pair -> [B, 3, 9600] (the Pallas kernel's contract).
+  pss_correlate_power_cfo_bins(window, bins, dtype)   the integer-CFO probe
+      [..., >= 9728] pair -> [..., len(bins), 3, 9600]: the window contract
+      against replica banks shifted by `bins` subcarriers, one launch a bin
+      (the kernel takes its weights by pointer; only the bank differs).
 
 On a CPU tensor each entry runs its plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises.  `launches` counts kernel launches.
@@ -58,11 +62,13 @@ _lib = None
 
 # ------------------------------------------------------------ plain version
 def rows_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
-                     m: int, dtype=torch.bfloat16) -> torch.Tensor:
+                     m: int, dtype=torch.bfloat16,
+                     cfo_bin: float = 0) -> torch.Tensor:
     """Plain PyTorch version of one kernel launch: [*B, N] pair -> [*B, m,
     384], row j from the 256 samples at lo + 128 j (zeros past N).  One
     [m, 512] @ [512, 768] matmul per lane (the operand is materialized
-    here), then the comp-major square-sum."""
+    here), then the comp-major square-sum.  `cfo_bin` picks the replica
+    bank (correlate._toeplitz_weights)."""
     batch = buf_re.shape[:-1]
     span = (m + 1) * SYMBOL_SZ
 
@@ -75,7 +81,7 @@ def rows_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
     r, i = blocks(buf_re), blocks(buf_im)
     x = torch.cat([r[..., :-1, :], i[..., :-1, :], r[..., 1:, :],
                    i[..., 1:, :]], dim=-1)               # [.., m, 512]
-    W = correlate.weights_fat(str(buf_re.device))
+    W = correlate.weights_fat(str(buf_re.device), cfo_bin)
     if dtype == torch.bfloat16:
         x, W = correlate.round_bf16(x), correlate.round_bf16(W)
     c = x @ W                                            # [.., m, 768]
@@ -153,28 +159,29 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, x - hi
 
 
-def weights_by_root(device: str) -> torch.Tensor:
+def weights_by_root(device: str, cfo_bin: float = 0) -> torch.Tensor:
     """W_fat transposed to [768, 512] (K contiguous) with one root's re and
     im columns adjacent: row 256 r + 128 c + m is column 384 c + 128 r + m
     of W_fat (c = 0 re, 1 im; r the root)."""
-    wt = correlate.weights_fat(device).T                 # [2 * 3 * 128, 512]
+    wt = correlate.weights_fat(device, cfo_bin).T        # [2 * 3 * 128, 512]
     k = wt.shape[-1]
     return wt.reshape(2, correlate.N_ROOTS, SYMBOL_SZ, k).permute(1, 0, 2, 3) \
         .reshape(2 * NPOW, k).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_weights(device: str, bf16: bool) -> torch.Tensor:
-    """The kernel's weights: `weights_by_root` rounded to bfloat16, or its
-    float32 (hi, lo) split stacked as [2, 768, 512]."""
-    wt = weights_by_root(device)
+def _kernel_weights(device: str, bf16: bool, cfo_bin: float = 0) \
+        -> torch.Tensor:
+    """The kernel's weights for one replica bank: `weights_by_root` rounded
+    to bfloat16, or its float32 (hi, lo) split stacked as [2, 768, 512]."""
+    wt = weights_by_root(device, cfo_bin)
     if bf16:
         return wt.to(torch.bfloat16)
     return torch.stack(split_tf32(wt)).contiguous()
 
 
 def rows_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
-               dtype) -> torch.Tensor:
+               dtype, cfo_bin: float = 0) -> torch.Tensor:
     """Run the kernel: [*B, N] pair -> [*B, m, 384] (m operand rows; plain
     version: `rows_power_plain`)."""
     global launches
@@ -197,7 +204,7 @@ def rows_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
     out = torch.empty(batch + (m, NPOW), device=buf_re.device,
                       dtype=torch.float32)
     bf16 = int(dtype == torch.bfloat16)
-    wt = _kernel_weights(str(buf_re.device), bool(bf16))
+    wt = _kernel_weights(str(buf_re.device), bool(bf16), cfo_bin)
     # the staged operand: [2 nb, m + 1, 128] bfloat16, or float32 hi and lo
     scratch = torch.empty(2 * nb * (m + 1) * SYMBOL_SZ * (2 if bf16 else 8),
                           device=buf_re.device, dtype=torch.uint8)
@@ -227,18 +234,38 @@ def group_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, g: int,
                                             SYMBOL_SZ))
 
 
-def pss_correlate_power(window, dtype=torch.bfloat16) -> torch.Tensor:
+def pss_correlate_power(window, dtype=torch.bfloat16,
+                        cfo_bin: float = 0) -> torch.Tensor:
     """pair of [B, >= 9728] float32 -> [B, 3, 9600] float32 (the window
     contract of the Pallas kernel; plain version:
-    correlate.pss_correlate_power_v2)."""
+    correlate.pss_correlate_power_v2, and for cfo_bin != 0 one bin of
+    correlate.pss_correlate_power_cfo_bins)."""
     wr, wi = window
     if wr.ndim != 2 or wr.shape[-1] < correlate.V2_WINDOW:
         raise ValueError(f"window must be [B, >= {correlate.V2_WINDOW}], "
                          f"got {tuple(wr.shape)}")
     if wr.device.type == "cpu":
-        return correlate.pss_correlate_power_v2(window, dtype)
+        return correlate.pss_correlate_power_cfo_bins(
+            window, (cfo_bin,), dtype)[:, 0]
     b = wr.shape[0]
-    out = rows_power(wr, wi, 0, NBLK, dtype)                # [B, 75, 384]
+    out = rows_power(wr, wi, 0, NBLK, dtype, cfo_bin)       # [B, 75, 384]
     return out.reshape(b, NBLK, correlate.N_ROOTS, SYMBOL_SZ) \
         .permute(0, 2, 1, 3).reshape(b, correlate.N_ROOTS,
                                      correlate.SEARCH_LEN)
+
+
+def pss_correlate_power_cfo_bins(window, bins=(-2, -1, 0, 1, 2),
+                                 dtype=torch.bfloat16) -> torch.Tensor:
+    """pair of [..., >= 9728] float32 -> [..., len(bins), 3, 9600] float32:
+    correlation power against the replica banks shifted by `bins`
+    subcarriers, one kernel launch per bin on the card (plain version:
+    correlate.pss_correlate_power_cfo_bins, two matmuls over all bins)."""
+    wr, wi = window
+    if wr.device.type == "cpu":
+        return correlate.pss_correlate_power_cfo_bins(window, bins, dtype)
+    batch = wr.shape[:-1]
+    flat = (wr.reshape(-1, wr.shape[-1]).contiguous(),
+            wi.reshape(-1, wi.shape[-1]).contiguous())
+    power = torch.stack([pss_correlate_power(flat, dtype, b) for b in bins],
+                        dim=1)                       # [B, bins, 3, 9600]
+    return power.reshape(batch + power.shape[1:])

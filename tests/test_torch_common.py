@@ -52,3 +52,20 @@ def engine_buffer(sig: np.ndarray, lookback: int, window: int) -> np.ndarray:
 def to_pair_torch(x: np.ndarray):
     return (torch.from_numpy(np.ascontiguousarray(x.real, np.float32)),
             torch.from_numpy(np.ascontiguousarray(x.imag, np.float32)))
+
+
+def offset(x: np.ndarray, subcarriers: float) -> np.ndarray:
+    """`x` shifted in frequency by `subcarriers` x 15 kHz (complex64)."""
+    n = np.arange(x.size, dtype=np.float64)
+    return (x * np.exp(2j * np.pi * subcarriers / 128.0 * n)) \
+        .astype(np.complex64)
+
+
+DECISIVE = ("cell_id", "nof_prb", "nof_tx_ports", "cp_len")
+
+
+def fields(cell, keys=None) -> dict:
+    """A Cell as a dict without its wall-clock stamp (or only `keys`)."""
+    d = cell.to_dict()
+    d.pop("tracking_start_time")
+    return {k: d[k] for k in keys} if keys else d

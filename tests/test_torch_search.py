@@ -69,12 +69,19 @@ def test_cli_prints_jax_json(tmp_path, capsys):
 
 
 def test_search_refuses_missing_cuda_and_cfo_probe(monkeypatch):
+    """Without a card `search` raises, with and without the integer-CFO
+    probe (the probe itself is ported: on the CPU it finds an on-frequency
+    cell at bin 0 and changes nothing)."""
     iq, rate = _capture("6prb_1.92M")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.search(iq, rate, cfo_search_range=2, device="cpu")
+    got = api.search(iq, rate, max_seconds=SECONDS, cfo_search_range=2,
+                     device="cpu")
+    assert _fields(got) == _fields(api.search(iq, rate, max_seconds=SECONDS,
+                                              device="cpu")) and got
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.search(iq, rate, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.search(iq, rate, cfo_search_range=2)
 
 
 def test_kernel_wrapper_never_falls_back():
@@ -94,7 +101,9 @@ def test_port_imports_no_jax():
     in a fresh interpreter leaves jax and ltetrigger_tpu out of
     sys.modules."""
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 18
+    assert {"multi.py", "live_monitor.py", "native.py"} \
+        <= {f.name for f in files}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -109,8 +118,13 @@ def test_port_imports_no_jax():
                     (path, m)
     code = ("import sys\n"
             "import ltetrigger_tpu_torch.apps.cell_search_file as c\n"
+            "import ltetrigger_tpu_torch.apps.live_monitor as l\n"
             "import ltetrigger_tpu_torch.models.api as a\n"
+            "import ltetrigger_tpu_torch.models.multi as m\n"
             "from ltetrigger_tpu_torch.ltecore import synth, refrx\n"
+            "from ltetrigger_tpu_torch.runtime import native\n"
+            "a.Trigger(device='cpu').process(synth.synthesize_frame(1))\n"
+            "m.MultiTrigger(2, device='cpu').flush()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ltetrigger_tpu')]\n"
             "assert not bad, bad\n")

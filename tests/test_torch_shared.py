@@ -25,8 +25,10 @@ import ltetrigger_tpu
 import ltetrigger_tpu_torch
 from ltetrigger_tpu import ltecore as jcore
 from ltetrigger_tpu.runtime import cellstore as jstore, chunkbuf as jbuf
+from ltetrigger_tpu.runtime import native as jnative
 from ltetrigger_tpu.utils import eng_notation as jeng, profiling as jprof
 from ltetrigger_tpu_torch.runtime import cellstore as tstore, chunkbuf as tbuf
+from ltetrigger_tpu_torch.runtime import native as tnative
 from ltetrigger_tpu_torch.utils import eng_notation as teng, profiling as tprof
 
 PORT = pathlib.Path(ltetrigger_tpu_torch.__file__).resolve().parent
@@ -300,6 +302,47 @@ def test_chunkbuffer_equal():
     same(ja.view(0, len(ja)), tb.view(0, len(tb)))
 
 
+# ------------------------------------------------------ runtime.native ----
+def _iq(seed: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+
+
+def test_native_points_at_the_same_sources():
+    """The port's copy binds the same cpp/ library as the JAX package's."""
+    assert tnative._CPP_DIR == jnative._CPP_DIR
+    assert tnative._SO_PATH == jnative._SO_PATH
+    assert tnative.available() == jnative.available()
+    same(jnative.deinterleave(_iq(1, 1000)), tnative.deinterleave(_iq(1, 1000)))
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 16])
+def test_native_decimator_equal(ratio):
+    x = _iq(2, 16 * 700 + 5)
+    same(jnative.Decimator(ratio)(x), tnative.Decimator(ratio)(x))
+
+
+def test_native_ring_buffer_equal():
+    ja, tb = jnative.RingBuffer(1000), tnative.RingBuffer(1000)
+    for seed, n in ((3, 600), (4, 700), (5, 10)):
+        x = _iq(seed, n)
+        assert ja.write(x) == tb.write(x)
+        assert ja.available() == tb.available()
+        same(ja.read(450), tb.read(450))
+
+
+@pytest.mark.parametrize("repeat", [False, True])
+def test_native_file_source_equal(tmp_path, repeat):
+    path = str(tmp_path / "capture.c64")
+    _iq(6, 3000).tofile(path)
+    ja, tb = jnative.FileSource(path, repeat), tnative.FileSource(path, repeat)
+    assert ja.n_samples == tb.n_samples == 3000
+    for n in (1000, 2500, 700):
+        same(ja.read(n), tb.read(n))
+    with pytest.raises(FileNotFoundError):
+        tnative.FileSource(str(tmp_path / "absent.c64"))
+
+
 @pytest.mark.parametrize("text", ["15.36M", "1.92M", "800k", "2.4G", "10",
                                   "3m", "1e6", "7u"])
 def test_eng_notation(text):
@@ -351,7 +394,8 @@ def port_modules():
 def test_no_module_resolves_into_the_jax_package():
     names = port_modules()
     for want in ("ltecore.synth", "runtime.cellstore", "runtime.chunkbuf",
-                 "utils.profiling", "utils.eng_notation", "models.api"):
+                 "runtime.native", "utils.profiling", "utils.eng_notation",
+                 "models.api", "models.multi", "apps.live_monitor"):
         assert f"ltetrigger_tpu_torch.{want}" in names
     for name in names:
         mod = importlib.import_module(name)
@@ -376,9 +420,12 @@ def test_cli_import_loads_no_jax():
     code = (
         "import sys, pathlib\n"
         "import ltetrigger_tpu_torch.apps.cell_search_file as c\n"
+        "import ltetrigger_tpu_torch.apps.live_monitor as l\n"
         "import ltetrigger_tpu_torch.models.api as a\n"
+        "import ltetrigger_tpu_torch.models.multi as m\n"
         "from ltetrigger_tpu_torch.ltecore import synth, refrx\n"
         "from ltetrigger_tpu_torch.runtime import cellstore, chunkbuf\n"
+        "from ltetrigger_tpu_torch.runtime import native\n"
         "from ltetrigger_tpu_torch.utils import profiling, eng_notation\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ltetrigger_tpu')]\n"
