@@ -43,22 +43,46 @@ Phases, in order; any failure exits non-zero:
   9. a checkpoint: `save_state` on the card, `load_state` into a fresh
      Trigger, and the continued run publishes what the uninterrupted one
      does;
- 10. what uses torch.profiler, last, because a process that has run it may
+ 10. the channelizer: 0.25 s of a 30.72 Msps band to 16 centres on the card
+     against the same code on the CPU; CUDA-event time, wide samples/s;
+ 11. `wideband_scan` of that band, three synthetic cells at three of the 16
+     centres: exactly those three detected, cell id and PRB right;
+ 12. `WidebandTrigger(15.36 Msps, 8 centres)`, 2 s, eight 50-PRB cells: f32
+     events equal the CPU run's (the CPU runs the first 0.6 s) and equal the
+     card's `MultiTrigger(8)` fed the one-shot channelizer's rows; i8 and i4
+     find all eight; narrow samples/s per carrier, StageTimer, one kernel
+     launch a dispatch, host waits a dispatch equal to MultiTrigger's, the
+     most dispatches in flight;
+ 13. 16 carriers at 30.72 Msps, i8, 1 s: all 16 found; samples/s a carrier;
+ 14. a wideband checkpoint across a cut, with four cells that come up after
+     it; `live_monitor --wideband` and `wideband_scan` as subprocesses on a
+     capture file;
+ 15. `snr_sweep`, 21 points x 8 trials x 0.5 s (168 channels x 100 steps):
+     P(detect) 1 at and above 0 dB, 0 at and below -26 dB (the knee of a
+     noise-free synthetic frame looped for 0.5 s lies near -20 dB, in the
+     JAX package too); `pbch_sweep`, 5 x 8;
+ 16. `run_flowgraph`: both examples/*_torch.grc demos on the card (needs
+     PyYAML: without it one line says so and the phase does not start);
+ 17. the kernel against its plain version at this slice's shapes: the
+     16-row mirror at g=32, the sweep's 168 channels, the 16-channel scan;
+ 18. what uses torch.profiler, last, because a process that has run it may
      launch more slowly afterwards: the small launches' host enqueue time
      and each launch's device kernels by name; a streaming dispatch's device
      kernels, device time and idle share;
- 11. the port must not have imported jax or the JAX package, nor loaded a
+ 19. the port must not have imported jax or the JAX package, nor loaded a
      module from a file outside its own directory.
 
-Nothing of phases 1-5 was cut to make room for the later ones.
+Nothing of phases 1-9 was cut to make room for the later ones.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import importlib.util
 import io
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -197,6 +221,69 @@ def feed(trigger, sig: np.ndarray, chunk: int = 19200):
     return got, time.perf_counter() - t0
 
 
+def make_band(dev, synth, rate: float, cells, seconds: float,
+              seed: int) -> np.ndarray:
+    """`seconds` of a band at `rate` (complex64, unit rms before the noise):
+    each of `cells` = (centre Hz, cell id, PRB field, start s) is one
+    synthetic frame, interpolated to the band's rate, looped from its start
+    time on and mixed to its centre with a float64 phase; plus seeded noise
+    31 dB under the band.  Made on the card, returned on the host."""
+    ratio = int(round(rate / 1.92e6))
+    n = int(round(seconds * rate))
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    acc = torch.zeros(n, dtype=torch.complex64, device=dev)
+    for center, cid, prb, start_s in cells:
+        frame = torch.from_numpy(upsample(
+            synth.synthesize_frame(cid, nof_prb_field=prb), ratio)).to(dev)
+        x = frame.repeat(-(-n // frame.shape[0]))[:n]
+        ph = torch.remainder(t * (center / rate), 1.0) * (2 * math.pi)
+        rot = torch.complex(torch.cos(ph), torch.sin(ph)).to(torch.complex64)
+        x = x * rot
+        x[:int(round(start_s * rate))] = 0
+        acc += x
+        del x, ph, rot
+    acc /= acc.abs().square().mean().sqrt()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acc += 0.02 * torch.complex(
+        torch.randn(n, generator=g, device=dev),
+        torch.randn(n, generator=g, device=dev))
+    return acc.cpu().numpy()
+
+
+def feed_wide(w, wide: np.ndarray, chunk: int):
+    """Every chunk through process_wide(), then flush(): (published as
+    (stream, fields) pairs, wall s)."""
+    t0 = time.perf_counter()
+    got = []
+    for i in range(0, len(wide), chunk):
+        got += w.process_wide(wide[i:i + chunk])
+    got += w.flush()
+    if w.device.type == "cuda":
+        torch.cuda.synchronize()
+    return tagged(got), time.perf_counter() - t0
+
+
+def tagged(pub) -> list:
+    """(stream, Cell) pairs as (stream, fields) pairs."""
+    return [(n, fields([c])[0]) for n, c in pub]
+
+
+def waits_per_call(calls) -> list:
+    """Run each of `calls` under torch.cuda.set_sync_debug_mode("warn"):
+    the number of synchronizing calls PyTorch reported for each."""
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for call in calls:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call()
+            counts.append(len(caught))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return counts
+
+
 def big_buffer(dev, synth, trig):
     """[C_BIG, LOOKBACK + 100 half-frames + WINDOW] pair: channel c carries
     cell 3c + (c % 3) (all roots, many cell ids) plus seeded noise."""
@@ -231,10 +318,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
     from ltetrigger_tpu_torch.apps import cell_search_file as cli
+    from ltetrigger_tpu_torch.apps import snr_sweep as sweep
+    from ltetrigger_tpu_torch.apps import wideband_scan as wscan
     from ltetrigger_tpu_torch.ltecore import synth
     from ltetrigger_tpu_torch.models import api, trigger as trig
     from ltetrigger_tpu_torch.models.multi import MultiTrigger
-    from ltetrigger_tpu_torch.ops import correlate
+    from ltetrigger_tpu_torch.models.wideband import WidebandTrigger
+    from ltetrigger_tpu_torch.ops import channelize as chan
+    from ltetrigger_tpu_torch.ops import correlate, cplx
     from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
 
     # ---- 2. build ----
@@ -443,7 +534,7 @@ def main() -> int:
         return res, mf.launches, dict(trig.host_syncs)
 
     def dispatches(t) -> int:
-        return t.timer.summary()["scan"]["count"]
+        return t.timer.summary().get("scan", {}).get("count", 0)
 
     sig = stream_cell(synth, 125, 50, 2.0, seed=11)
     feed(api.Trigger(psr_threshold=4, device="cuda"), sig[:20 * 19200])
@@ -500,19 +591,38 @@ def main() -> int:
                     for k, v in t_deep.timer.summary().items())
         + f" [{smi}]")
 
-    # every host wait of a few dispatches, as PyTorch itself reports them
+    # every host wait of each dispatch, as PyTorch itself reports them,
+    # beside the waits the engine names (trigger.host_syncs): from the first
+    # chunk on, so that the dispatches that decode a candidate are among them
     t = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
-    feed(t, sig[:10 * 19200])
-    n0 = dispatches(t)
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        for i in range(10, 20):
+    per_call = []
+
+    def one_chunk(i):
+        def call():
+            n0, named0 = dispatches(t), dict(trig.host_syncs)
             t.process(sig[i * 19200:(i + 1) * 19200])
-    torch.cuda.set_sync_debug_mode("default")
+            per_call.append((dispatches(t) - n0,
+                             {k: v - named0.get(k, 0)
+                              for k, v in trig.host_syncs.items()
+                              if v - named0.get(k, 0)}))
+        return call
+
+    trig.host_syncs.clear()
+    reported = waits_per_call([one_chunk(i) for i in range(20)])
     t.flush()
-    log(f"sync debug mode: {len(caught)} synchronizing calls reported over "
-        f"{dispatches(t) - n0} dispatches while tracking")
+    single = [(w, named) for w, (n, named) in zip(reported, per_call)
+              if n == 1]
+    decoding = [(w, named) for w, named in single if "cp" in named]
+    tracking = [(w, named) for w, named in single
+                if set(named) == {"emit", "capture"}]
+    assert decoding and tracking, per_call
+    for w, named in single:
+        assert w == sum(named.values()), (w, named)
+    log(f"sync debug mode, {len(single)} single-dispatch calls: a decoding "
+        f"dispatch reports {decoding[0][0]} synchronizing calls "
+        f"({decoding[0][1]}), a tracking one {tracking[0][0]} "
+        f"({tracking[0][1]}); every call reports exactly the waits the "
+        f"engine names")
 
     # one dispatch per step bucket on the mirror's shape, N=1 and N=8, and
     # the kernel against its plain version there: a 2.5 M-sample row, lo no
@@ -664,16 +774,316 @@ def main() -> int:
         f"the uninterrupted one does ({fields(after, decisive)} after "
         f"{fields(before, decisive)})")
 
-    # ---- 10. under the profiler: the small launches' host side, then each
+    # ---- 10. the channelizer: 0.25 s of 30.72 Msps to 16 centres ----
+    rate16 = 30.72e6
+    centers16 = [(k - 7.5) * 1.92e6 for k in range(16)]
+    planted = {2: (101, 25), 7: (202, 50), 13: (303, 100)}
+    band16 = make_band(dev, synth, rate16,
+                       [(centers16[k], cid, prb, 0.0)
+                        for k, (cid, prb) in planted.items()], 0.25, seed=51)
+    on_card = chan.channelize(band16, rate16, centers16, device="cuda")
+    on_cpu = chan.channelize(band16, rate16, centers16, device="cpu")
+    chan_err = 0.0
+    for g, r in zip(on_card, on_cpu):
+        assert g.shape == r.shape == (16, band16.size // 16), g.shape
+        torch.testing.assert_close(g.cpu(), r, **TOL)
+        chan_err = max(chan_err, (g.cpu() - r).abs().max().item())
+    del on_card, on_cpu
+    pair16 = cplx.from_numpy(band16, dev)
+    ms = cuda_ms(lambda: chan.channelize(pair16, rate16, centers16), iters=5)
+    del pair16
+    log(f"channelize {band16.size} wide samples at 30.72 Msps to 16 centres: "
+        f"card equals CPU (max_abs_err {chan_err:.3e} on a unit-rms band), "
+        f"{ms:.2f} ms a call from a pair on the card (CUDA events), "
+        f"{band16.size / ms / 1e3:.1f} M wide samples/s [{smi}]")
+
+    # ---- 11. wideband_scan of that band ----
+    wscan.wideband_scan(band16, rate16, centers16, seconds=0.25,
+                        device="cuda")                     # warm-up
+    t0 = time.perf_counter()
+    recs, n_launch, _ = counted(lambda: wscan.wideband_scan(
+        band16, rate16, centers16, seconds=0.25, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert [r["detected"] for r in recs] == [k in planted for k in range(16)], \
+        recs
+    for k, (cid, prb) in planted.items():
+        assert (recs[k]["cell_id"], recs[k]["nof_prb"]) == (cid, prb), recs[k]
+    assert n_launch > 0
+    path_launches["wideband_scan, snr_sweep, pbch_sweep"] = n_launch
+    log(f"wideband_scan 0.25 s x 16 centres: exactly the planted cells "
+        f"{ {k: recs[k]['cell_id'] for k in planted} } detected, "
+        f"{n_launch} kernel launch(es), {wall * 1e3:.1f} ms wall [{smi}]")
+
+    # ---- 12. WidebandTrigger: 8 carriers from one 15.36 Msps stream ----
+    rate8 = 15.36e6
+    centers8 = [(k - 3.5) * 1.92e6 for k in range(8)]
+    ids8 = [c for c, _ in cells8]
+    band8 = make_band(dev, synth, rate8,
+                      [(c, cid, 50, 0.0) for c, cid in zip(centers8, ids8)],
+                      2.0, seed=52)
+    wchunk = 19200 * 8                       # one radio frame of band
+    n_narrow = band8.size // 8
+    feed_wide(WidebandTrigger(rate8, centers8, psr_threshold=4,
+                              device="cuda"), band8[:20 * wchunk], wchunk)
+    wide_events, wide_trigs = {}, {}
+    path_launches["WidebandTrigger"] = 0
+    for transport in ("f32", "i8", "i4"):
+        w = WidebandTrigger(rate8, centers8, psr_threshold=4,
+                            transport=transport, device="cuda")
+        (got, wall), n_launch, syncs = counted(
+            lambda: feed_wide(w, band8, wchunk))
+        n_disp = dispatches(w)
+        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        assert sorted((n, f["cell_id"]) for n, f in got) \
+            == list(enumerate(ids8)), (transport, got)
+        assert int(w.backlog.max()) <= 9600, w.backlog
+        wide_events[transport], wide_trigs[transport] = got, w
+        path_launches["WidebandTrigger"] += n_launch
+        log(f"WidebandTrigger(8 x 15.36 Msps) {transport}: "
+            f"{n_narrow / wall / 1e6:.3f} M narrow samples/s per carrier of "
+            f"wall time ({band8.size / wall / 1e6:.3f} M wide samples/s), "
+            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
+            f"and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
+                                for k, v in sorted(syncs.items()))
+            + f" host syncs a dispatch, at most {w.max_in_flight} in "
+            f"flight; all 8 cells found; stages (mean ms x count): "
+            + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                        for k, v in w.timer.summary().items())
+            + f" [{smi}]")
+    cpu_events, _ = feed_wide(
+        WidebandTrigger(rate8, centers8, psr_threshold=4, transport="f32",
+                        device="cpu"), band8[:60 * wchunk], wchunk)
+    assert wide_events["f32"] == cpu_events and len(cpu_events) == 8, \
+        (wide_events["f32"], cpu_events)
+    for transport in ("i8", "i4"):
+        assert [(n, {k: f[k] for k in decisive})
+                for n, f in wide_events[transport]] \
+            == [(n, {k: f[k] for k in decisive}) for n, f in cpu_events], \
+            transport
+    # the card's MultiTrigger(8) fed the one-shot channelizer's rows
+    rows8 = chan.channelize(band8, rate8, centers8, device="cuda")
+    narrow8 = (rows8[0].cpu().numpy() + 1j * rows8[1].cpu().numpy()) \
+        .astype(np.complex64)
+    del rows8
+    m = MultiTrigger(8, psr_threshold=4, transport="f32", device="cuda")
+    t0 = time.perf_counter()
+    got = []
+    for i in range(0, n_narrow, 19200):
+        got += m.process_all(list(narrow8[:, i:i + 19200]))
+    got += m.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert tagged(got) == wide_events["f32"], (tagged(got),
+                                               wide_events["f32"])
+    np.testing.assert_array_equal(m.tracking_score,
+                                  wide_trigs["f32"].tracking_score)
+    log(f"WidebandTrigger f32 on the card = on the CPU (first 0.6 s) = "
+        f"MultiTrigger(8) on the card fed the channelizer's rows, field for "
+        f"field; that MultiTrigger(8) f32 run: "
+        f"{n_narrow / wall / 1e6:.3f} M samples/s per stream, stages: "
+        + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                    for k, v in m.timer.summary().items()) + f" [{smi}]")
+    # host waits per dispatch while tracking, as PyTorch reports them
+    w = WidebandTrigger(rate8, centers8, psr_threshold=4, transport="i8",
+                        device="cuda")
+    m = MultiTrigger(8, psr_threshold=4, transport="i16", device="cuda")
+    for i in range(20):
+        w.process_wide(band8[i * wchunk:(i + 1) * wchunk])
+        m.process_all(list(narrow8[:, i * 19200:(i + 1) * 19200]))
+    nw, nm = dispatches(w), dispatches(m)
+    waits_w = sum(waits_per_call(
+        [lambda i=i: w.process_wide(band8[i * wchunk:(i + 1) * wchunk])
+         for i in range(20, 30)]))
+    waits_m = sum(waits_per_call(
+        [lambda i=i: m.process_all(
+            list(narrow8[:, i * 19200:(i + 1) * 19200]))
+         for i in range(20, 30)]))
+    nw, nm = dispatches(w) - nw, dispatches(m) - nm
+    w.flush()
+    m.flush()
+    assert nw > 0 and nm > 0 and waits_w * nm == waits_m * nw, \
+        (nw, nm, waits_w, waits_m)
+    log(f"sync debug mode while tracking: WidebandTrigger {waits_w} "
+        f"synchronizing calls over {nw} dispatches, MultiTrigger {waits_m} "
+        f"over {nm}")
+    del narrow8
+
+    # ---- 13. 16 carriers at 30.72 Msps ----
+    ids16 = [7 + 31 * k for k in range(16)]
+    band = make_band(dev, synth, rate16,
+                     [(c, cid, 50, 0.0) for c, cid in zip(centers16, ids16)],
+                     1.0, seed=53)
+    w = WidebandTrigger(rate16, centers16, psr_threshold=4, transport="i8",
+                        device="cuda")
+    (got, wall), n_launch, syncs = counted(
+        lambda: feed_wide(w, band, 19200 * 16))
+    n_disp = dispatches(w)
+    assert n_launch == n_disp > 0, (n_launch, n_disp)
+    assert sorted((n, f["cell_id"]) for n, f in got) \
+        == list(enumerate(ids16)), got
+    path_launches["WidebandTrigger"] += n_launch
+    log(f"WidebandTrigger(16 x 30.72 Msps) i8: "
+        f"{band.size / 16 / wall / 1e6:.3f} M narrow samples/s per carrier "
+        f"of wall time ({band.size / wall / 1e6:.3f} M wide samples/s), "
+        f"{n_disp} dispatches of 1 kernel launch, at most "
+        f"{w.max_in_flight} in flight; all 16 cells found; stages (mean ms "
+        f"x count): "
+        + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                    for k, v in w.timer.summary().items()) + f" [{smi}]")
+    del band
+
+    # ---- 14. a wideband checkpoint, and the CLIs on a capture file ----
+    late = make_band(dev, synth, rate8,
+                     [(c, cid, 50, 0.0 if k < 4 else 0.5)
+                      for k, (c, cid) in enumerate(zip(centers8, ids8))],
+                     1.0, seed=54)
+    cut = 26 * wchunk + 12345
+
+    def wb():
+        return WidebandTrigger(rate8, centers8, psr_threshold=4,
+                               transport="f32", device="cuda")
+
+    whole = wb()
+    before = tagged(whole.process_wide(late[:cut]) + whole.flush())
+    after, _ = feed_wide(whole, late[cut:], wchunk)
+    first = wb()
+    first.process_wide(late[:cut])
+    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        first.save_state(f"{tmp}/wide.npz")
+        second = wb()
+        second.load_state(f"{tmp}/wide.npz")
+        resumed, _ = feed_wide(second, late[cut:], wchunk)
+        assert sorted(n for n, _ in before) == [0, 1, 2, 3], before
+        assert resumed == after \
+            and sorted(n for n, _ in after) == [4, 5, 6, 7], (resumed, after)
+        np.testing.assert_allclose(second.mean_psr, whole.mean_psr,
+                                   rtol=1e-4)
+        assert (second.tracking_score == whole.tracking_score).all()
+        log("wideband checkpoint: the WidebandTrigger resumed from "
+            "save_state publishes the four late cells as the uninterrupted "
+            "one does")
+        cap_path = f"{tmp}/band8.c64"
+        band8[:50 * wchunk].tofile(cap_path)
+        spec = ",".join(f"{c / 1e6:g}M" for c in centers8)
+        for mod, args in (
+                ("live_monitor", ["--wideband", "--refresh", "10"]),
+                ("wideband_scan", ["--seconds", "0.25"])):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", f"ltetrigger_tpu_torch.apps.{mod}",
+                 cap_path, "-s", "15.36M", f"--centers={spec}", *args],
+                capture_output=True, text=True, timeout=300,
+                cwd=pathlib.Path(__file__).resolve().parent)
+            assert done.returncode == 0, done.stderr[-2000:]
+            if mod == "live_monitor":
+                lines = [json.loads(x) for x in done.stdout.splitlines()]
+                found = sorted((e["stream"], e["cell_id"]) for e in lines
+                               if e["event"] == "track")
+                assert any(e["event"] == "status" for e in lines)
+            else:
+                found = [(k, r["cell_id"]) for k, r in
+                         enumerate(json.loads(done.stdout)) if r["detected"]]
+            assert found == list(enumerate(ids8)), (mod, found)
+            log(f"{mod} as a subprocess on a 0.5 s capture at 15.36 Msps: "
+                f"all 8 cells, {time.perf_counter() - t0:.1f} s with start-up")
+    del late, band8
+
+    # ---- 15. snr_sweep and pbch_sweep ----
+    frame77 = synth.synthesize_frame(77, nof_prb_field=25)
+    snrs = list(range(-30, 11, 2))
+    sweep.snr_sweep(frame77, 1.92e6, snrs[:2], seconds=0.1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    curve, n_launch, _ = counted(lambda: sweep.snr_sweep(
+        frame77, 1.92e6, snrs, seconds=0.5, n_trials=8, seed=0,
+        device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert len(curve) == 21 and n_launch > 0
+    for rec in curve:
+        if rec["snr_db"] >= 0:
+            assert rec["prob"] == 1.0 and rec["cell_id"] == 77, rec
+        if rec["snr_db"] <= -26:
+            assert rec["prob"] == 0.0, rec
+    path_launches["wideband_scan, snr_sweep, pbch_sweep"] += n_launch
+    log(f"snr_sweep 21 points x 8 trials x 0.5 s (168 channels): "
+        f"{wall * 1e3:.1f} ms wall, {n_launch} kernel launches, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on the "
+        f"card; P(detect) by SNR dB: "
+        + ", ".join(f"{r['snr_db']:g}: {r['prob']:g}" for r in curve)
+        + f" [{smi}]")
+    t0 = time.perf_counter()
+    pcurve, n_launch, _ = counted(lambda: sweep.pbch_sweep(
+        [-40, -30, -27, -20, 0], n_trials=8, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert pcurve[-1]["prob"] == 1.0 and pcurve[0]["prob"] == 0.0, pcurve
+    path_launches["wideband_scan, snr_sweep, pbch_sweep"] += n_launch
+    log(f"pbch_sweep 5 points x 8 trials x 6 TTIs: {wall * 1e3:.1f} ms wall "
+        f"with the frames' synthesis on the host, {n_launch} kernel "
+        f"launches; P(publish) by PBCH dB: "
+        + ", ".join(f"{r['pbch_rel_db']:g}: {r['prob']:g}" for r in pcurve))
+
+    # ---- 16. run_flowgraph: the two demos ----
+    if importlib.util.find_spec("yaml") is None:
+        log("run_flowgraph: PyYAML is not installed here, so the phase is "
+            "not run")
+    else:
+        import yaml
+        from ltetrigger_tpu_torch.apps import run_flowgraph as flow
+        examples = pathlib.Path(__file__).resolve().parent / "examples"
+        path_launches["run_flowgraph"] = 0
+        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+            synth.synthesize_frame(123, nof_prb_field=6) \
+                .astype(np.complex64).tofile(f"{tmp}/cell123.c64")
+            for demo in ("ltetrigger_demo_torch.grc",
+                         "snr_ltetrigger_demo_torch.grc"):
+                fg = yaml.safe_load((examples / demo).read_text())
+                for b in fg["blocks"]:
+                    if b["id"] == "blocks_file_source":
+                        b["parameters"]["file"] = f"{tmp}/cell123.c64"
+                pathlib.Path(f"{tmp}/{demo}").write_text(yaml.safe_dump(fg))
+                out, n_launch, _ = counted(
+                    lambda: flow.FlowgraphRunner(f"{tmp}/{demo}")
+                    .run(time_out=1.0))
+                cells = out["cellstore_0"]
+                assert cells and cells[0]["cell_id"] == 123 \
+                    and cells[0]["nof_prb"] == 6, out
+                assert n_launch > 0
+                path_launches["run_flowgraph"] += n_launch
+                log(f"run_flowgraph {demo}: cell 123 in the flowgraph's "
+                    f"cell store, {n_launch} kernel launches")
+
+    # ---- 17. the kernel at this slice's shapes ----
+    shapes = (("mirror N=16 g=32", 16, cap, at, 32),
+              ("grid C=168 (sweep, 0.5 s)", 168,
+               trig.LOOKBACK + 960000 + trig.WINDOW, lo,
+               trig._pick_group(100, 168)),
+              ("grid C=16 (scan, 0.25 s) g=25", 16,
+               trig.LOOKBACK + 480000 + trig.WINDOW, lo, 25))
+    for label, n_rows, length, start, g in shapes:
+        gen = torch.Generator(device=dev).manual_seed(n_rows + g)
+        buf = tuple(torch.randn((n_rows, length), generator=gen, device=dev)
+                    for _ in range(2))
+        if "sweep" in label:
+            label = label.replace(")", f") g={g}")
+        case(label, buf, g * 75, torch.bfloat16,
+             lambda: mf.group_power(*buf, start, g, torch.bfloat16),
+             lambda: mf.group_power_plain(*buf, start, g, torch.bfloat16),
+             at=start)
+        del buf
+
+    # ---- 18. under the profiler: the small launches' host side, then each
     # launch's device kernels by name ----
-    shapes = ((f"grid C={C_BIG} g=25",
-               lambda dt: mf.group_power(*big, lo, 25, dt)),
+    launch_shapes = ((f"grid C={C_BIG} g=25",
+                      lambda dt: mf.group_power(*big, lo, 25, dt)),
               ("grid C=1 g=25", lambda dt: mf.group_power(*small, lo, 25, dt)),
               ("window B=8", lambda dt: mf.pss_correlate_power(win, dt)))
     host = {(label, dt): enqueue_us(lambda: fn(dt))
-            for label, fn in shapes[1:]
+            for label, fn in launch_shapes[1:]
             for dt in (torch.float32, torch.bfloat16)}
-    for label, fn in shapes:
+    for label, fn in launch_shapes:
         for dt in (torch.float32, torch.bfloat16):
             parts = device_kernels(lambda: fn(dt))
             log(f"device kernels of one {label} {dt} launch: " + ", ".join(
@@ -705,7 +1115,7 @@ def main() -> int:
         f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
         f"idle share {1 - busy / wall:.3f} [{smi}]")
 
-    # ---- 11. nothing of JAX ----
+    # ---- 19. nothing of JAX ----
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "ltetrigger_tpu")]
     assert not bad, f"imported {bad[:5]}"

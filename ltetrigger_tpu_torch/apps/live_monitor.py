@@ -12,7 +12,8 @@ and the monitor prints a status line per refresh plus JSON events for every
 tracked/dropped cell.  The probe surface (per-root tracking_score, mean_psr,
 mean_cfo, max_psr, latest_cell) is what the reference's GRC function probes
 polled.  Several paths monitor several carriers through ONE device pipeline
-(`MultiTrigger`).  `--wideband` is not ported yet.
+(`MultiTrigger`); with `--wideband` the single source is a wide band at
+`-s`, channelized on the device to `--centers` (`WidebandTrigger`).
 """
 
 from __future__ import annotations
@@ -127,7 +128,57 @@ def run_multi(streams, psr_threshold: float = 4.0,
     trig.flush()
 
 
+def run_wideband(stream, sample_rate: float, centers,
+                 psr_threshold: float = 4.0, chunk_samples: int = 0,
+                 refresh_every: int = 10, out=sys.stdout, max_chunks=None,
+                 transport: str = "i8", device="cuda") -> None:
+    """ONE wideband source -> N monitored carriers (WidebandTrigger): one
+    SDR and one upload stream replace N per-carrier pipes (the reference
+    needs one process AND one SDR per carrier).  `stream` carries raw
+    complex64 at `sample_rate` (an integer multiple of 1.92 MHz)."""
+    from ..models.wideband import WidebandTrigger
+
+    ratio = int(round(sample_rate / 1.92e6))
+    if not chunk_samples:
+        chunk_samples = 19200 * ratio          # one radio frame of band
+
+    trig = WidebandTrigger(
+        sample_rate, centers, psr_threshold=psr_threshold,
+        transport=transport, device=device,
+        on_track=lambda i, cell: _emit(out, "track", stream=i,
+                                       center_offset_hz=centers[i],
+                                       **cell.to_dict()),
+        on_drop=lambda i, cell_id: _emit(out, "drop", stream=i,
+                                         center_offset_hz=centers[i],
+                                         cell_id=cell_id))
+    n = 0
+    t0 = time.time()
+    while max_chunks is None or n < max_chunks:
+        raw = stream.read(chunk_samples * 8)
+        if not raw:
+            break
+        wide_chunk = np.frombuffer(raw, dtype=np.complex64)
+        trig.process_wide(wide_chunk)
+        n += 1
+        if n % refresh_every == 0:
+            _emit(out, "status",
+                  t=round(time.time() - t0, 1),
+                  psd_db=_psd_db(wide_chunk),     # whole-band waterfall line
+                  centers_hz=centers,
+                  tracking_score=trig.tracking_score.tolist(),
+                  tracking=trig.tracking.tolist(),
+                  mean_psr=np.round(trig.mean_psr, 2).tolist(),
+                  mean_cfo=np.round(trig.mean_cfo, 4).tolist(),
+                  backlog=trig.backlog.tolist(),
+                  cells=[[c.cell_id for c in s.cells()]
+                         for s in trig.stores],
+                  stages=_stages(trig))
+    trig.flush()
+
+
 def main(argv=None) -> int:
+    from ..utils.eng_notation import str_to_num
+
     p = argparse.ArgumentParser(prog="live_monitor")
     p.add_argument("sources", nargs="+",
                    help="'-' for stdin, or path(s) (FIFO / growing file) of "
@@ -138,31 +189,46 @@ def main(argv=None) -> int:
                    help="samples per read (default: one radio frame)")
     p.add_argument("--refresh", type=int, default=10,
                    help="status line every N chunks")
-    p.add_argument("--transport", default="i16",
+    p.add_argument("--transport", default=None,
                    choices=("f32", "i16", "i8", "i4"),
-                   help="host->device sample encoding (i4: several sources "
+                   help="host->device sample encoding (default: i16, and i8 "
+                        "for --wideband; i4: several sources or --wideband "
                         "only)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; fails if "
                         "CUDA is absent)")
     p.add_argument("--wideband", action="store_true",
-                   help="not ported yet")
+                   help="the single source is a WIDE band; channelize on "
+                        "device to --centers (one SDR, N carriers)")
+    p.add_argument("-s", "--sample-rate", type=str, default="1.92M",
+                   help="wideband input rate, eng notation (with "
+                        "--wideband; integer multiple of 1.92M)")
+    p.add_argument("--centers", type=str, default="0",
+                   help="comma-separated carrier offsets from band center, "
+                        "eng notation (with --wideband), e.g. "
+                        "-5.76M,-1.92M,1.92M,5.76M")
     args = p.parse_args(argv)
-    if args.wideband:
-        p.error("--wideband is not ported yet: see ROADMAP.md, 'Modules to "
-                "port', item 9 (wideband)")
+    if args.wideband and len(args.sources) != 1:
+        p.error("--wideband takes exactly one source")
 
     streams = [sys.stdin.buffer if s == "-" else open(s, "rb")
                for s in args.sources]
     common = dict(psr_threshold=args.threshold,
-                  chunk_samples=args.chunk or 19200,
-                  refresh_every=args.refresh, transport=args.transport,
-                  device=args.device, out=sys.stdout)
+                  refresh_every=args.refresh, device=args.device,
+                  out=sys.stdout)
+    narrow = dict(common, chunk_samples=args.chunk or 19200,
+                  transport=args.transport or "i16")
     try:
-        if len(streams) == 1:
-            run(streams[0], **common)
+        if args.wideband:
+            centers = [str_to_num(tok) for tok in args.centers.split(",")
+                       if tok.strip()]
+            run_wideband(streams[0], str_to_num(args.sample_rate), centers,
+                         chunk_samples=args.chunk,
+                         transport=args.transport or "i8", **common)
+        elif len(streams) == 1:
+            run(streams[0], **narrow)
         else:
-            run_multi(streams, **common)
+            run_multi(streams, **narrow)
     except KeyboardInterrupt:
         pass
     finally:

@@ -6,9 +6,10 @@ CellStore.  `Trigger`: the streaming detector with the reference hier
 block's surface (telemetry, track/drop events into a CellStore), fed in
 chunks of any size.
 
-The streaming pipeline (`_StreamPipeline`, shared with models/multi.py) keeps
-a mirror of the stream on the device and, per dispatch, uploads only the new
-samples, scans up to 32 half-frame steps and copies the packed events back.
+The streaming pipeline (`_StreamPipeline`, shared with models/multi.py and
+models/wideband.py) keeps a mirror of the stream on the device and, per
+dispatch, uploads only the new samples, scans up to 32 half-frame steps and
+copies the packed events back.
 Everything it enqueues goes to the device's current stream, in order:
 
   upload   the new segment is written into pinned host memory and copied
@@ -51,6 +52,8 @@ from ..runtime.chunkbuf import ChunkBuffer
 from ..utils.profiling import StageTimer
 from ..ops import correlate, cplx, resample
 from ..ops.kernels import matched_filter
+from ..ops.device import (resolve_device, staging as _staging,
+                          to_device as _to_device)
 from . import trigger as trig
 
 LOOKBACK = trig.LOOKBACK
@@ -61,16 +64,6 @@ V2_WINDOW = correlate.V2_WINDOW
 def ensure_safe_threshold(t: float) -> float:
     """Clamp to MIN_PSR_THRESHOLD (parity: downlink_trigger_c.py:10,71-73)."""
     return t if t > MIN_PSR_THRESHOLD else MIN_PSR_THRESHOLD
-
-
-def resolve_device(device) -> torch.device:
-    """The device to run on; raises if CUDA is asked for and absent (the
-    port never continues on the CPU in its place)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but "
-                           "torch.cuda.is_available() is False")
-    return dev
 
 
 def _prepare_buffer(iq: np.ndarray, sample_rate: float,
@@ -130,24 +123,6 @@ def _cfo_bin_probe(buffer: cplx.Pair, nbins: int):
     wins = tuple(torch.stack([c[s:s + V2_WINDOW] for s in starts])
                  for c in buffer)
     return _best_bin(wins, nbins)
-
-
-def _staging(shape, np_dtype, device) -> tuple[torch.Tensor, np.ndarray]:
-    """A host tensor to fill and then copy to `device`, with its numpy view.
-    For a card it is pinned, so the copy can be `non_blocking`; a pageable
-    source would make the copy wait for everything queued before it."""
-    dtype = torch.from_numpy(np.empty(0, np_dtype)).dtype
-    t = torch.empty(tuple(shape), dtype=dtype,
-                    pin_memory=torch.device(device).type == "cuda")
-    return t, t.numpy()
-
-
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    """numpy -> tensor on `device` through a staging tensor, without
-    waiting for the device."""
-    t, view = _staging(a.shape, a.dtype, device)
-    view[...] = a
-    return t.to(device, non_blocking=True)
 
 
 def _rotate(x: cplx.Pair, half_bins, n0: int) -> cplx.Pair:
@@ -381,7 +356,12 @@ class _StreamPipeline:
     leading shape `batch` (() for one stream, (N,) for N).
 
     All streams advance through the same grid together; a dispatch covers
-    only steps for which every stream has data."""
+    only steps for which every stream has data.
+
+    Where the samples come from is behind four methods, which
+    `models.wideband.WidebandTrigger` overrides to feed every stream from
+    one wide host buffer: `_fed_min`, `_backlog`, `_trim_front` and
+    `_upload_segment`."""
 
     # rebase threshold (class attribute so tests can exercise the wrap
     # without streaming 4.7 minutes of samples).  Must stay a multiple of
@@ -546,7 +526,15 @@ class _StreamPipeline:
         return self._grid
 
     def _fed_min(self) -> int:
+        """The stream index up to which every stream has samples."""
         return min(self._base + len(b) for b in self._bufs)
+
+    def _trim_front(self, keep_from: int) -> None:
+        """Drop the first `keep_from` samples of every host buffer: they lie
+        below every root's drained position."""
+        for buf in self._bufs:
+            buf.drop_front(keep_from)
+        self._base += keep_from
 
     def _dispatch_one(self, published: list) -> bool:
         """Dispatch one adaptive-depth scan if every stream's buffer
@@ -575,9 +563,7 @@ class _StreamPipeline:
             # discard host samples below every root's drained position
             keep_from = int(self._pos_lb.min()) - LOOKBACK - self._base
             if keep_from > 0:
-                for buf in self._bufs:
-                    buf.drop_front(keep_from)
-                self._base += keep_from
+                self._trim_front(keep_from)
             # sync the device mirror up to what this dispatch can reach
             # (not the whole host backlog: it may exceed the mirror)
             hi_need = (self._estimated_min_pos()
@@ -634,7 +620,20 @@ class _StreamPipeline:
         new = max(hi - have_end, 0)
         if new == 0 and shift == 0:
             return
-        a = have_end - self._base
+        up_r, up_i, scale = self._upload_segment(have_end, new)
+        bins = self._cfo_bins.reshape(self._batch)
+        self._dev = _mirror_advance(
+            self._dev[0], self._dev[1], up_r, up_i, scale, shift,
+            have_end - new_base, bins, have_end)
+        self._dev_base = new_base
+        self._dev_len = max(hi, have_end) - new_base
+
+    def _upload_segment(self, start: int, new: int):
+        """Stream samples [start, start + new) of every stream, on the
+        device: (re, im) of shape [*batch, new] in the transport's type and
+        the float32 scale [*batch] that `_mirror_advance` multiplies back
+        in.  One quantisation per stream into one pinned tensor, one copy."""
+        a = start - self._base
         i4 = self.transport == "i4"
         up, view = _staging(
             (self.n,) + (() if i4 else (2,)) + (new,),
@@ -648,13 +647,8 @@ class _StreamPipeline:
         else:
             up = up.reshape(self._batch + (2, new))
             up_r, up_i = up[..., 0, :], up[..., 1, :]
-        bins = self._cfo_bins.reshape(self._batch)
-        self._dev = _mirror_advance(
-            self._dev[0], self._dev[1], up_r, up_i,
-            _to_device(scale.reshape(self._batch), self.device), shift,
-            have_end - new_base, bins, have_end)
-        self._dev_base = new_base
-        self._dev_len = max(hi, have_end) - new_base
+        return up_r, up_i, _to_device(scale.reshape(self._batch),
+                                      self.device)
 
     def _maybe_probe_cfo(self) -> None:
         """Coarse-CFO probe of the streams that neither track nor score."""

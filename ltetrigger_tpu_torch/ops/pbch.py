@@ -129,6 +129,21 @@ def _tables(normal_cp: bool, device: str):
 
 
 @functools.lru_cache(maxsize=None)
+def _decode_tables(device: str):
+    """Device tables of the codeword search, uploaded once per device (a
+    copy from pageable memory per call would make every decoding dispatch
+    wait for the stream): the CRC matrix [16, 24], the port masks of the 12
+    hypotheses [12, 16], the MIB's bandwidth table [8] and the port count
+    of each hypothesis [12]."""
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    return {"crc": t(_crc_matrix(), np.float32),
+            "masks": t(np.repeat(_crc_masks(), 4, axis=0), np.float32),
+            "prb": t(list(NOF_PRB_TABLE) + [0, 0], np.int32),
+            "ports": t(_PORTS_OF, np.int32)}
+
+
+@functools.lru_cache(maxsize=None)
 def _gold_on(length: int, device: str):
     return tuple(torch.from_numpy(a).to(device) for a in _gold_mats(length))
 
@@ -303,7 +318,7 @@ def codeword_search(llrs: torch.Tensor, port_masks: torch.Tensor):
     h = llrs.shape[0]
     r = llrs.reshape(h, 3, 40).transpose(1, 2)            # step-major [40, 3]
     bits, metric = viterbi_decode_wa(r.contiguous())
-    C = torch.from_numpy(_crc_matrix()).to(llrs.device)
+    C = _decode_tables(str(llrs.device))["crc"]
     payload = bits[:, :24].to(torch.float32)
     crc_calc = torch.remainder(payload @ C.T, 2.0)
     expect = torch.remainder(crc_calc + port_masks, 2.0)
@@ -314,8 +329,7 @@ def codeword_search(llrs: torch.Tensor, port_masks: torch.Tensor):
 def _unpack_fields(bits: torch.Tensor):
     """[..., 24] payload bits -> MIB fields."""
     bw = bits[..., 0] * 4 + bits[..., 1] * 2 + bits[..., 2]
-    prb_tab = torch.tensor(list(NOF_PRB_TABLE) + [0, 0], dtype=torch.int32,
-                           device=bits.device)
+    prb_tab = _decode_tables(str(bits.device))["prb"]
     nof_prb = prb_tab[torch.clamp(bw, 0, 7).to(torch.int64)]
     phich_ext = bits[..., 3]
     phich_res = bits[..., 4] * 2 + bits[..., 5]
@@ -347,7 +361,8 @@ def search_and_unpack(llrs12: torch.Tensor, quarter_of: torch.Tensor):
     """
     bshape = llrs12.shape[:-2]
     dev = llrs12.device
-    masks = torch.from_numpy(np.repeat(_crc_masks(), 4, axis=0)).to(dev)
+    tabs = _decode_tables(str(dev))
+    masks = tabs["masks"]
     flat = llrs12.reshape(-1, 120)
     res = codeword_search(flat, masks.repeat(flat.shape[0] // 12, 1))
     bits = res["bits"].reshape(bshape + (12, 40))
@@ -355,7 +370,7 @@ def search_and_unpack(llrs12: torch.Tensor, quarter_of: torch.Tensor):
     ok = res["crc_ok"].reshape(bshape + (12,)) & fields["bw_valid"]
     prio = torch.where(ok, torch.arange(12, 0, -1, device=dev), 0)
     best = torch.argmax(prio, dim=-1, keepdim=True)
-    ports_tab = torch.tensor(_PORTS_OF, dtype=torch.int32, device=dev)
+    ports_tab = tabs["ports"]
 
     def pick(a):
         return torch.take_along_dim(a, best, dim=-1)[..., 0]

@@ -34,6 +34,18 @@ def _rational_taps(up: int, down: int, taps_per_phase: int = 16) -> np.ndarray:
     return (up * h / h.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _taps_on(ratio: int, device: str) -> torch.Tensor:
+    """The decimator's taps on `device`, uploaded once: a copy from pageable
+    memory per call would make a streaming caller wait for the stream."""
+    return torch.from_numpy(_taps(ratio)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _rational_taps_on(up: int, down: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_rational_taps(up, down)).to(device)
+
+
 def rational_resample(x: cplx.Pair, up: int, down: int) -> cplx.Pair:
     """Rational-rate conversion by up/down (polyphase).
 
@@ -48,7 +60,7 @@ def rational_resample(x: cplx.Pair, up: int, down: int) -> cplx.Pair:
         return decimate(x, down) if down > 1 else x
 
     dev = x[0].device
-    h = torch.from_numpy(_rational_taps(up, down)).to(dev)
+    h = _rational_taps_on(up, down, str(dev))
     nt = h.shape[0]
     lead = (nt - 1) // 2
     n_in = x[0].shape[-1]
@@ -84,7 +96,7 @@ def decimate(x: cplx.Pair, ratio: int) -> cplx.Pair:
     """
     if ratio == 1:
         return x
-    h = torch.from_numpy(_taps(ratio)).to(x[0].device)
+    h = _taps_on(ratio, str(x[0].device))
     nt = h.shape[0]
     lead = (nt - 1) // 2
     batch_shape = x[0].shape[:-1]

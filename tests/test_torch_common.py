@@ -69,3 +69,32 @@ def fields(cell, keys=None) -> dict:
     d = cell.to_dict()
     d.pop("tracking_start_time")
     return {k: d[k] for k in keys} if keys else d
+
+
+# engine outputs: PSR rtol 1e-4 (a ratio of correlation powers that agree to
+# rtol 1e-4 / atol 1e-5), the CFO mean atol 1e-4 subcarriers, the EMA'd power
+# rtol 1e-4 / atol 1e-5, the TTI LLR accumulator atol 1e-6 of its largest value
+FLOAT_TOL = {"psr": dict(rtol=1e-4), "cfo_mean": dict(atol=1e-4),
+             "ema": dict(rtol=1e-4, atol=1e-5), "psr_max": dict(rtol=1e-4),
+             "psr_ring": dict(rtol=1e-4), "cfo_ring": dict(atol=1e-4),
+             "chest": dict(rtol=1e-3, atol=1e-3)}
+
+
+def assert_fields(got, ref, fields, what):
+    """Named fields of two engine tuples (state, raw or step output; the
+    port's tensors against the JAX package's arrays): integers and booleans
+    equal, floats within FLOAT_TOL."""
+    for f in fields:
+        g = getattr(got, f)
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        r = np.asarray(getattr(ref, f))
+        assert g.shape == r.shape, (what, f, g.shape, r.shape)
+        if f == "llr_acc":
+            np.testing.assert_allclose(g, r, rtol=1e-4,
+                                       atol=1e-6 * max(np.abs(r).max(), 1),
+                                       err_msg=f"{what}.{f}")
+        elif f in FLOAT_TOL:
+            np.testing.assert_allclose(g, r, err_msg=f"{what}.{f}",
+                                       **FLOAT_TOL[f])
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=f"{what}.{f}")

@@ -20,12 +20,7 @@ from ltetrigger_tpu.ops import cplx as jcplx
 from ltetrigger_tpu_torch.models import trigger as trig
 from test_torch_common import (acq_loss_reacq, engine_buffer, frames,
                                noise, to_pair_torch)
-
-FLOAT_TOL = {"psr": dict(rtol=1e-4), "cfo_mean": dict(atol=1e-4),
-             "ema": dict(rtol=1e-4, atol=1e-5), "psr_max": dict(rtol=1e-4),
-             "psr_ring": dict(rtol=1e-4), "cfo_ring": dict(atol=1e-4),
-             "chest": dict(rtol=1e-3, atol=1e-3)}
-
+from test_torch_common import assert_fields as _assert_fields
 
 # one compile per (shape, n_steps, track_after, track_every), shared by tests
 _jax_engine = jax.jit(jtrig.scan_engine, static_argnums=(2, 4, 5))
@@ -34,23 +29,6 @@ _jax_engine = jax.jit(jtrig.scan_engine, static_argnums=(2, 4, 5))
 def _buffers(sig: np.ndarray):
     buf = engine_buffer(sig, trig.LOOKBACK, trig.WINDOW)
     return jcplx.from_numpy(buf), to_pair_torch(buf)
-
-
-def _assert_fields(got, ref, fields, what):
-    for f in fields:
-        g = getattr(got, f)
-        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
-        r = np.asarray(getattr(ref, f))
-        assert g.shape == r.shape, (what, f, g.shape, r.shape)
-        if f == "llr_acc":
-            np.testing.assert_allclose(g, r, rtol=1e-4,
-                                       atol=1e-6 * max(np.abs(r).max(), 1),
-                                       err_msg=f"{what}.{f}")
-        elif f in FLOAT_TOL:
-            np.testing.assert_allclose(g, r, err_msg=f"{what}.{f}",
-                                       **FLOAT_TOL[f])
-        else:
-            np.testing.assert_array_equal(g, r, err_msg=f"{what}.{f}")
 
 
 def _jax_batched_state(c: int):

@@ -103,6 +103,20 @@ def test_multi_equals_single_triggers(streams):
             == [fields(c) for c in t.cellstore.cells()]
 
 
+def test_host_buffers_are_trimmed_like_the_jax_class(streams):
+    """The pipeline trims its host buffers through the `_trim_front` hook:
+    after a long synchronous feed every stream's buffer starts and ends
+    where the JAX class's does, and nothing is lost at the back."""
+    ref, _, _ = run_multi(jmulti.MultiTrigger, streams, transport="f32",
+                          pipeline=0)
+    m, _, _ = run_multi(multi.MultiTrigger, streams, transport="f32",
+                        pipeline=0, device="cpu")
+    assert m._base == ref._base > 20 * 9600
+    assert [len(b) for b in m._bufs] == [len(b) for b in ref._bufs]
+    assert all(m._base + len(b) == len(streams[0]) < m._base + 4 * 9600
+               for b in m._bufs)
+
+
 @pytest.mark.parametrize("transport", ["i16", "i8", "i4"])
 def test_quantised_transports_find_the_jax_cells(streams, transport):
     _, ref_log, _ = run_multi(jmulti.MultiTrigger, streams,

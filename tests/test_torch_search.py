@@ -102,8 +102,9 @@ def test_port_imports_no_jax():
     sys.modules."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 18
-    assert {"multi.py", "live_monitor.py", "native.py"} \
-        <= {f.name for f in files}
+    assert {"multi.py", "live_monitor.py", "native.py", "wideband.py",
+            "channelize.py", "sharded.py", "wideband_scan.py",
+            "snr_sweep.py", "run_flowgraph.py"} <= {f.name for f in files}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -121,10 +122,16 @@ def test_port_imports_no_jax():
             "import ltetrigger_tpu_torch.apps.live_monitor as l\n"
             "import ltetrigger_tpu_torch.models.api as a\n"
             "import ltetrigger_tpu_torch.models.multi as m\n"
+            "import ltetrigger_tpu_torch.models.wideband as w\n"
+            "import ltetrigger_tpu_torch.parallel as p\n"
+            "from ltetrigger_tpu_torch.apps import (run_flowgraph, "
+            "snr_sweep, wideband_scan)\n"
             "from ltetrigger_tpu_torch.ltecore import synth, refrx\n"
             "from ltetrigger_tpu_torch.runtime import native\n"
             "a.Trigger(device='cpu').process(synth.synthesize_frame(1))\n"
             "m.MultiTrigger(2, device='cpu').flush()\n"
+            "w.WidebandTrigger(7.68e6, [0.0], device='cpu').process_wide("
+            "synth.synthesize_frame(1))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ltetrigger_tpu')]\n"
             "assert not bad, bad\n")

@@ -395,7 +395,10 @@ def test_no_module_resolves_into_the_jax_package():
     names = port_modules()
     for want in ("ltecore.synth", "runtime.cellstore", "runtime.chunkbuf",
                  "runtime.native", "utils.profiling", "utils.eng_notation",
-                 "models.api", "models.multi", "apps.live_monitor"):
+                 "models.api", "models.multi", "apps.live_monitor",
+                 "models.wideband", "ops.channelize", "ops.device",
+                 "parallel.sharded", "apps.wideband_scan", "apps.snr_sweep",
+                 "apps.run_flowgraph"):
         assert f"ltetrigger_tpu_torch.{want}" in names
     for name in names:
         mod = importlib.import_module(name)
@@ -423,6 +426,10 @@ def test_cli_import_loads_no_jax():
         "import ltetrigger_tpu_torch.apps.live_monitor as l\n"
         "import ltetrigger_tpu_torch.models.api as a\n"
         "import ltetrigger_tpu_torch.models.multi as m\n"
+        "import ltetrigger_tpu_torch.models.wideband as w\n"
+        "import ltetrigger_tpu_torch.parallel as p\n"
+        "from ltetrigger_tpu_torch.apps import (run_flowgraph, snr_sweep, "
+        "wideband_scan)\n"
         "from ltetrigger_tpu_torch.ltecore import synth, refrx\n"
         "from ltetrigger_tpu_torch.runtime import cellstore, chunkbuf\n"
         "from ltetrigger_tpu_torch.runtime import native\n"

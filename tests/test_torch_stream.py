@@ -96,6 +96,19 @@ def test_pipeline_depth_does_not_change_events(lossy, lossy_jax, pipeline):
     assert t.max_in_flight == 1          # on the CPU nothing stays in flight
 
 
+def test_host_buffer_is_trimmed_like_the_jax_class(lossy):
+    """The pipeline trims its host buffer through the `_trim_front` hook:
+    after a long synchronous feed the buffer starts and ends where the JAX
+    class's does, LOOKBACK before the position drained at the last
+    dispatch, and nothing is lost at the back."""
+    ref, _, _ = run_stream(japi.Trigger, lossy, transport="f32", pipeline=0)
+    t, _, _ = run_stream(api.Trigger, lossy, transport="f32", pipeline=0,
+                         device="cpu")
+    assert t._base == ref._base > 20 * 9600
+    assert len(t._bufs[0]) == len(ref._buf) < 4 * 9600
+    assert t._base + len(t._bufs[0]) == len(lossy)
+
+
 @pytest.mark.parametrize("transport", ["i16", "i8"])
 def test_quantised_transports_find_the_jax_cells(lossy, transport):
     _, ref_log, _ = run_stream(japi.Trigger, lossy, transport=transport)
@@ -402,11 +415,16 @@ def test_live_monitor_prints_the_jax_events(tmp_path, capsys):
     assert len(got) == len(ref)
 
 
-def test_live_monitor_wideband_names_the_roadmap(capsys):
+def test_live_monitor_wideband_names_the_roadmap(capsys, monkeypatch):
+    """`--wideband` used to exit with a pointer to the roadmap; it is ported
+    now: one (empty) source runs to its end, two sources are refused."""
+    monkeypatch.setattr("sys.stdin", io.TextIOWrapper(io.BytesIO(b"")))
+    assert mon.main(["-", "--wideband", "-s", "7.68M", "--device",
+                     "cpu"]) == 0
     with pytest.raises(SystemExit) as e:
-        mon.main(["-", "--wideband"])
+        mon.main(["-", "-", "--wideband", "--device", "cpu"])
     assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 def test_psd_line_equals_jax():
