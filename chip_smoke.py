@@ -65,14 +65,41 @@ Phases, in order; any failure exits non-zero:
      PyYAML: without it one line says so and the phase does not start);
  17. the kernel against its plain version at this slice's shapes: the
      16-row mirror at g=32, the sweep's 168 channels, the 16-channel scan;
- 18. what uses torch.profiler, last, because a process that has run it may
+ 18. the process mesh with NCCL at world size 1, in this process:
+     `init_distributed` on a free local port, `make_mesh()` is {ch: 1,
+     t: 1}; `channel_scan(mesh=)` of 16 channels x 50 steps equals
+     `channel_scan()` field for field (its all_gather runs through NCCL);
+     `time_sharded_scan` of 1 s of a cell on the one-shard mesh;
+     `MultiTrigger(8, mesh=)` and `WidebandTrigger(mesh=)` publish what
+     phases 7 and 12 did; a checkpoint saved with the mesh loads without it;
+ 19. the kernel against its plain version at the shapes a rank gets: 64 and
+     32 channels at g=25, a 2-row and a 4-row mirror at g=32;
+ 20. several ranks on the one card: this script again as 2 and then 4
+     subprocesses (`--rank`), gloo between them, every rank on cuda:0.
+     `ch` = 2 and 4: `channel_scan` of phase 5's 128 channels x 100 steps,
+     the gathered output equal to one process's field for field, a detection
+     in all 128 channels, kernel launches per rank, the wall time per rank
+     and for all beside one process's in the same call; then every rank
+     scans all 128 channels at the same time (2x and 4x the work).  `t` = 4:
+     `time_sharded_scan` of 2 s of a cell (0.5 s blocks), found in every
+     block; a stream whose last peak of every block lies 200 samples before
+     the seam, found through the halo, integers equal to the same call on 4
+     CPU ranks.  `ch` = 4: `MultiTrigger(8, mesh=)` i16 and
+     `WidebandTrigger(8 centres, mesh=)` f32, gathered events equal to
+     phases 7 and 12, samples/s per stream; a sharded checkpoint across a
+     cut, loaded by a trigger without a mesh.  Every rank has a timeout and
+     a rank that fails fails the run;
+ 21. one rank per card over NCCL, only where there are two or more cards
+     (one line says so otherwise): the `ch` and `t` cases of phase 20;
+     `python3 chip_smoke.py --cards` runs phases 1, 2 and this one alone;
+ 22. what uses torch.profiler, last, because a process that has run it may
      launch more slowly afterwards: the small launches' host enqueue time
      and each launch's device kernels by name; a streaming dispatch's device
      kernels, device time and idle share;
- 19. the port must not have imported jax or the JAX package, nor loaded a
+ 23. the port must not have imported jax or the JAX package, nor loaded a
      module from a file outside its own directory.
 
-Nothing of phases 1-9 was cut to make room for the later ones.
+Nothing of phases 1-17 was cut to make room for the later ones.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -84,6 +111,7 @@ import io
 import json
 import math
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -100,6 +128,12 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 C_BIG, STEPS_BIG = 128, 100
 CELLS = ((123, 6, 1.92e6), (124, 25, 7.68e6), (125, 50, 15.36e6),
          (369, 100, 30.72e6))
+# the 8 streams of the MultiTrigger phases (cell id, PRB) and the 8 carriers
+# of the WidebandTrigger phases (the same ids, 50 PRB, at 15.36 Msps)
+CELLS8 = ((10, 6), (41, 15), (72, 25), (103, 50), (134, 75), (165, 100),
+          (196, 25), (227, 50))
+RATE8 = 15.36e6
+CENTERS8 = [(k - 3.5) * 1.92e6 for k in range(8)]
 
 
 def log(*a):
@@ -302,7 +336,366 @@ def big_buffer(dev, synth, trig):
     return tuple(comps), cells
 
 
+def band_of_eight(dev, synth) -> np.ndarray:
+    """2 s of the 15.36 Msps band of phases 12 and 20: the cells of CELLS8,
+    50 PRB each, one at each of CENTERS8."""
+    return make_band(dev, synth, RATE8,
+                     [(c, cid, 50, 0.0)
+                      for c, (cid, _) in zip(CENTERS8, CELLS8)], 2.0, seed=52)
+
+
+def late_streams(sigs, cut: int) -> np.ndarray:
+    """The 8 streams of phase 7 with streams 4-7 silent before `cut`: their
+    cells come up after a checkpoint taken there."""
+    out = np.stack(sigs)
+    out[4:, :cut] = 0
+    return out
+
+
+def feed_all(m, sigs, start: int = 0, stop: int | None = None) -> list:
+    """sigs[:, start:stop] through process_all() in 19200-sample chunks,
+    then flush(): the published (stream, Cell) pairs."""
+    stop = sigs.shape[1] if stop is None else stop
+    got = []
+    for i in range(start, stop, 19200):
+        got += m.process_all(list(sigs[:, i:min(i + 19200, stop)]))
+    return got + m.flush()
+
+
+def straddle_stream(synth, n_blocks: int, frames_per_block: int) -> np.ndarray:
+    """A stream for `n_blocks` time shards in which the last PSS peak of
+    every block lies 200 samples before the block's end: its half-frame, SSS
+    and PBCH are read from the right neighbour's halo."""
+    frame = synth.synthesize_frame(123, nof_prb_field=6).astype(np.complex64)
+    shift = 9400 - 832
+    n = n_blocks * frames_per_block
+    return np.tile(frame, n + 1)[19200 - shift:19200 - shift + n * 19200] \
+        .copy()
+
+
+def pair_np(x: np.ndarray):
+    return (np.ascontiguousarray(x.real, np.float32),
+            np.ascontiguousarray(x.imag, np.float32))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# ======================================================================
+# one rank of phases 20 and 21 (`chip_smoke.py --rank ...`)
+# ======================================================================
+def rank_main(args) -> int:
+    """python3 chip_smoke.py --rank RANK WORLD PORT DIR BACKEND PLAN
+
+    BACKEND gloo: every rank on cuda:0; nccl: rank k on cuda:k.  PLAN is a
+    comma-separated list of "scan" (ch = WORLD), "shards" (t = WORLD) and
+    "stream" (ch = WORLD, needs DIR/sigs.npy and DIR/band8.npy).  What the
+    rank measured goes to DIR/rank<RANK>.json, the gathered results (rank
+    0) to files beside it.  No phase carries on without a card."""
+    rank, world, port = int(args[0]), int(args[1]), int(args[2])
+    out, backend, plan = pathlib.Path(args[3]), args[4], args[5].split(",")
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+    from ltetrigger_tpu_torch.ltecore import synth
+    from ltetrigger_tpu_torch.models import trigger as trig
+    from ltetrigger_tpu_torch.models.multi import MultiTrigger
+    from ltetrigger_tpu_torch.models.wideband import WidebandTrigger
+    from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
+    from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
+                                               init_distributed, make_mesh,
+                                               time_sharded_scan)
+    from ltetrigger_tpu_torch.parallel import mesh as meshmod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    dev = init_distributed(
+        f"127.0.0.1:{port}", world, rank, backend=backend, timeout=300,
+        device="cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev)}
+
+    def barrier(mesh):
+        meshmod.all_gather_object(None, mesh, None)
+        torch.cuda.synchronize()
+
+    try:
+        ch = make_mesh(world, 1)
+        if "scan" in plan:
+            big, _ = big_buffer(dev, synth, trig)
+            lo, hi = ch.local_slice(C_BIG)
+            local = tuple(c[lo:hi] for c in big)
+            channel_scan(big, STEPS_BIG, 4.0, mesh=ch)         # warm-up
+            t_call, t_engine, t_full = [], [], []
+            for _ in range(3):
+                barrier(ch)
+                t0 = time.perf_counter()
+                mf.launches = 0
+                _, got = channel_scan(big, STEPS_BIG, 4.0, mesh=ch)
+                torch.cuda.synchronize()
+                t_call.append(1e3 * (time.perf_counter() - t0))
+                res["scan_launches"] = mf.launches
+                barrier(ch)
+                t0 = time.perf_counter()
+                trig.scan_engine(local, trig.init_state(batch=(hi - lo,),
+                                                        device=dev),
+                                 STEPS_BIG, 4.0, grid0=trig.LOOKBACK)
+                torch.cuda.synchronize()
+                t_engine.append(1e3 * (time.perf_counter() - t0))
+                # every rank all 128 channels at once: WORLD x the work
+                barrier(ch)
+                t0 = time.perf_counter()
+                trig.scan_engine(big, trig.init_state(batch=(C_BIG,),
+                                                      device=dev),
+                                 STEPS_BIG, 4.0, grid0=trig.LOOKBACK)
+                torch.cuda.synchronize()
+                t_full.append(1e3 * (time.perf_counter() - t0))
+            res.update(scan_call_ms=t_call, scan_engine_ms=t_engine,
+                       scan_full_ms=t_full, scan_rows=[lo, hi])
+            if rank == 0:
+                np.save(out / f"scan_ch{world}.npy",
+                        trig.pack_output(got).cpu().numpy())
+            del big, local, got
+
+        if "shards" in plan:
+            tm = make_mesh(1, world)
+            per = 200 // world              # frames a block: 2 s in all
+            cell = stream_cell(synth, 125, 50, 2.0, seed=11)
+            time_sharded_scan(pair_np(cell[:world * 19200]), tm, 4.0)
+            barrier(tm)
+            t0 = time.perf_counter()
+            mf.launches = 0
+            got = time_sharded_scan(pair_np(cell), tm, 4.0)
+            torch.cuda.synchronize()
+            res["shards_ms"] = 1e3 * (time.perf_counter() - t0)
+            res["shards_launches"] = mf.launches
+            ev = got.track_event.cpu().numpy()      # [t, steps, R]
+            assert ev.shape == (world, 2 * per, 3), ev.shape
+            assert ev.any(axis=(1, 2)).all(), ev.any(axis=(1, 2))
+            assert set(got.cell_id.cpu().numpy()[ev].tolist()) == {125}
+            seam = straddle_stream(synth, world, per)
+            mf.launches = 0
+            got = time_sharded_scan(pair_np(seam), tm, 4.0)
+            res["shards_launches"] += mf.launches
+            host = trig.unpack_output(trig.pack_output(got))
+            assert host.track_event.any(axis=(1, 2)).all()
+            for shard in range(world - 1):  # the step that crosses the seam
+                assert host.psr[shard, -1, 123 % 3] > 4.0, host.psr[shard, -1]
+                assert host.cell_id[shard, -1, 123 % 3] == 123
+            res["straddle_events"] = int(host.track_event.sum())
+            if backend == "gloo":           # the same call on 4 CPU ranks
+                ref = time_sharded_scan(pair_np(seam),
+                                        make_mesh(1, world, device="cpu"),
+                                        4.0)
+                ref = trig.unpack_output(trig.pack_output(ref))
+                lane = 123 % 3      # the other roots' lanes hold no cell:
+                for f in trig.StepOutput._fields:   # their ids are ties
+                    g, r = getattr(host, f), getattr(ref, f)
+                    if f in trig._F32_FIELDS:
+                        np.testing.assert_allclose(g[..., lane], r[..., lane],
+                                                   rtol=1e-3, atol=1e-3)
+                    elif f in ("cell_id", "normal_cp"):
+                        assert (g[..., lane] == r[..., lane]).all(), f
+                    else:
+                        assert (g == r).all(), f
+                res["straddle_equals_cpu_ranks"] = True
+
+        if "stream" in plan:
+            sigs = np.load(out / "sigs.npy")
+            band8 = np.load(out / "band8.npy")
+            wchunk = 19200 * 8
+
+            def timed(make, feed):
+                feed(make(), 20)                        # warm-up
+                t = make()
+                barrier(ch)
+                t0 = time.perf_counter()
+                mf.launches = 0
+                got = feed(t, None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                return t, got, {
+                    "wall_s": wall, "launches": mf.launches,
+                    "dispatches": t.timer.summary()["scan"]["count"],
+                    "in_flight": t.max_in_flight, "rows": t.n,
+                    "stages": {k: [v["mean_ms"], v["count"]]
+                               for k, v in t.timer.summary().items()}}
+
+            m, got, res["multi"] = timed(
+                lambda: MultiTrigger(8, psr_threshold=4, transport="i16",
+                                     mesh=ch),
+                lambda t, n: feed_all(t, sigs, 0, n and n * 19200))
+            merged = gather_events(got, ch)
+            assert {n for n, _ in got} <= set(m.local_streams)
+
+            def feed_w(t, n):
+                stop = band8.size if n is None else n * wchunk
+                got = []
+                for i in range(0, stop, wchunk):
+                    got += t.process_wide(band8[i:i + wchunk])
+                return got + t.flush()
+
+            w, got, res["wide"] = timed(
+                lambda: WidebandTrigger(RATE8, CENTERS8, psr_threshold=4,
+                                        transport="f32", mesh=ch), feed_w)
+            wide_merged = gather_events(got, ch)
+            # a sharded checkpoint at a cut, for a trigger without a mesh
+            cut = 45 * 19200
+            late = late_streams(sigs, cut)
+            first = MultiTrigger(8, psr_threshold=4, transport="f32", mesh=ch)
+            before = gather_events(feed_all(first, late, 0, cut), ch)
+            first.save_state(str(out / "sharded.npz"))
+            if rank == 0:
+                (out / "stream_events.json").write_text(json.dumps({
+                    "multi": tagged(merged), "wide": tagged(wide_merged),
+                    "before": tagged(before)}))
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
+              timeout: float = 420.0) -> list:
+    """Phase 20 / 21's spawn: `world` ranks of this script under one time
+    limit.  A rank that fails ends the others at once; every rank's output
+    is printed; any exit code but 0 raises.  returns what each rank
+    measured."""
+    port = free_port()
+    logs = [open(out / f"{plan.replace(',', '_')}_{world}_rank{r}.log", "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--rank",
+         str(r), str(world), str(port), str(out), backend, plan],
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=pathlib.Path(__file__).resolve().parent) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(proc.poll() is None for proc in procs) \
+                and time.monotonic() < deadline \
+                and all(proc.poll() in (None, 0) for proc in procs):
+            time.sleep(0.1)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        for line in f.read().splitlines():
+            if "socket.cpp" not in line:        # c10d's hostname warning
+                log(f"  [rank {r}/{world}] {line}")
+        f.close()
+    codes = [proc.returncode for proc in procs]
+    assert codes == [0] * world, \
+        f"ranks exited with {codes} (limit {timeout:.0f} s)"
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def one_process_scan(big, channel_scan, trig) -> tuple:
+    """`channel_scan` of the 128 x 100 buffer in this process, after a
+    warm-up: (packed output on the host, best of 3 in ms)."""
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = channel_scan(big, STEPS_BIG, 4.0)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return trig.pack_output(out).cpu().numpy(), min(times[1:])
+
+
+def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
+                  want, cells_big, one_ms: float, smi: str, trig) -> list:
+    """`channel_scan` of 128 x 100 over `world` ranks (and what else `plan`
+    names): the gathered output against `want` (one process's packed
+    output), a detection in every channel, and the times.  returns what
+    each rank measured."""
+    ranks = run_ranks(world, out, backend, plan)
+    got = trig.unpack_output(np.load(out / f"scan_ch{world}.npy"))
+    ref = trig.unpack_output(want)
+    for f in trig.StepOutput._fields:
+        g, r = getattr(got, f), getattr(ref, f)
+        if f in trig._F32_FIELDS:
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4, err_msg=f)
+        else:
+            assert (g == r).all(), f
+    for c, cid in enumerate(cells_big):
+        s = np.nonzero(got.track_event[:, c, cid % 3])[0]
+        assert s.size and got.cell_id[s[0], c, cid % 3] == cid, (c, cid)
+    call = max(min(r["scan_call_ms"]) for r in ranks)
+    engine = max(min(r["scan_engine_ms"]) for r in ranks)
+    full = max(min(r["scan_full_ms"]) for r in ranks)
+    assert all(r["scan_launches"] > 0 for r in ranks)
+    log(f"channel_scan 128 x 100 over ch = {world} ({ranks[0]['backend']}, "
+        f"{'one card' if backend == 'gloo' else 'a card a rank'}): gathered "
+        f"output = one process's field for field, detections in all "
+        f"{C_BIG} channels; per rank (best of 3, ms) engine alone "
+        + ", ".join(f"{min(r['scan_engine_ms']):.1f}" for r in ranks)
+        + "; whole call with the gather "
+        + ", ".join(f"{min(r['scan_call_ms']):.1f}" for r in ranks)
+        + f"; slowest rank {engine:.1f} / {call:.1f} ms against "
+        f"{one_ms:.1f} ms in one process: {one_ms / engine:.2f}x / "
+        f"{one_ms / call:.2f}x the channels/s; every rank all {C_BIG} "
+        f"channels at the same time (engine alone) "
+        + ", ".join(f"{min(r['scan_full_ms']):.1f}" for r in ranks)
+        + f" ms: {world * one_ms / full:.2f}x the channels/s; "
+        f"{ranks[0]['scan_launches']} kernel launches a rank [{smi}]")
+    return ranks
+
+
+def shards_line(ranks, smi: str) -> None:
+    world = ranks[0]["world"]
+    log(f"time_sharded_scan over t = {world} ({ranks[0]['backend']}): 2 s "
+        f"of cell 125 in {world} blocks, found in every block, "
+        + ", ".join(f"{r['shards_ms']:.1f}" for r in ranks)
+        + f" ms a rank; the stream whose last peak of every block lies 200 "
+        f"samples before the seam: found in every block through the halo "
+        f"({ranks[0]['straddle_events']} events)"
+        + (", integers equal to the same call on CPU ranks"
+           if ranks[0].get("straddle_equals_cpu_ranks") else "")
+        + f"; {ranks[0]['shards_launches']} kernel launches a rank [{smi}]")
+
+
+def cards_phase(out, want, cells_big, one_ms, smi, trig) -> int:
+    """Phase 21 (`out` holds sigs.npy and band8.npy).  returns the kernel
+    launches of all ranks (0 when the phase did not start)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"one rank per card over NCCL: not started, this machine has "
+            f"{n} card; this run says nothing of NCCL between cards")
+        return 0
+    world = 4 if n >= 4 else 2
+    ranks = scan_on_ranks(world, out, "nccl", "scan,shards,stream", want,
+                          cells_big, one_ms, smi, trig)
+    shards_line(ranks, smi)
+    merged = json.loads((out / "stream_events.json").read_text())
+    ids = list(enumerate(c for c, _ in CELLS8))
+    for key in ("multi", "wide"):
+        assert [(k, f["cell_id"]) for k, f in merged[key]] == ids, merged[key]
+    assert [k for k, _ in merged["before"]] == [0, 1, 2, 3], merged["before"]
+    log(f"MultiTrigger(8, mesh=) i16 and WidebandTrigger(8 centres, mesh=) "
+        f"f32 over ch = {world}, a card a rank: the gathered events are the "
+        f"8 cells in stream order; M samples/s per stream, per rank: "
+        + ", ".join(f"{3840000 / r['multi']['wall_s'] / 1e6:.3f}"
+                    for r in ranks) + " and "
+        + ", ".join(f"{3840000 / r['wide']['wall_s'] / 1e6:.3f}"
+                    for r in ranks)
+        + f"; a checkpoint written through NCCL's all_gather_object [{smi}]")
+    return sum(r["scan_launches"] + r["shards_launches"]
+               + r["multi"]["launches"] + r["wide"]["launches"]
+               for r in ranks)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
+    only_cards = sys.argv[1:2] == ["--cards"]
     # ---- 1. the card ----
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -327,6 +720,11 @@ def main() -> int:
     from ltetrigger_tpu_torch.ops import channelize as chan
     from ltetrigger_tpu_torch.ops import correlate, cplx
     from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
+    from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
+                                               init_distributed, make_mesh,
+                                               time_sharded_scan)
+    from ltetrigger_tpu_torch.parallel import mesh as meshmod
+    import torch.distributed as dist
 
     # ---- 2. build ----
     path, build_s = mf.build()
@@ -339,6 +737,23 @@ def main() -> int:
             log(f"  {kname}: " + "; ".join(
                 x.replace("ptxas info    :", "").strip()
                 for x in report[i + 2:i + 4]))
+
+    if only_cards:      # phases 1, 2 and 21 alone
+        big, cells_big = big_buffer(dev, synth, trig)
+        want, one_ms = one_process_scan(big, channel_scan, trig)
+        del big
+        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+            np.save(f"{tmp}/sigs.npy", np.stack(
+                [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
+                 for i, (cid, prb) in enumerate(CELLS8)]))
+            np.save(f"{tmp}/band8.npy", band_of_eight(dev, synth))
+            n = cards_phase(pathlib.Path(tmp), want, cells_big, one_ms, smi,
+                            trig)
+        log(smi)
+        print(json.dumps({"ok": n > 0, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0 if n > 0 else 1
 
     # ---- 3. kernel against plain version ----
     big, cells_big = big_buffer(dev, synth, trig)
@@ -470,7 +885,7 @@ def main() -> int:
         st, out = dispatch()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    ms = 1e3 * min(times)
+    ms = ms_dispatch = 1e3 * min(times)
     ev = out.track_event.cpu().numpy()              # [S, C, R]
     ids = out.cell_id.cpu().numpy()
     for c, cid in enumerate(cells_big):
@@ -659,8 +1074,7 @@ def main() -> int:
          w_fat=correlate.weights_fat("cuda", 1.5))
 
     # ---- 7. MultiTrigger over 8 streams ----
-    cells8 = ((10, 6), (41, 15), (72, 25), (103, 50), (134, 75), (165, 100),
-              (196, 25), (227, 50))
+    cells8 = CELLS8
     sigs = [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
             for i, (cid, prb) in enumerate(cells8)]
     singles = []
@@ -696,6 +1110,8 @@ def main() -> int:
         n_disp = dispatches(m)
         assert n_launch == n_disp > 0, (n_launch, n_disp)
         path_launches["MultiTrigger"] += n_launch
+        if transport == "i16":
+            events7, sps7 = tagged(got), sigs[0].size / wall
         keys = None if transport == "i16" else decisive
         for k in range(8):
             mine = fields([c for n, c in got if n == k], keys)
@@ -816,12 +1232,9 @@ def main() -> int:
         f"{n_launch} kernel launch(es), {wall * 1e3:.1f} ms wall [{smi}]")
 
     # ---- 12. WidebandTrigger: 8 carriers from one 15.36 Msps stream ----
-    rate8 = 15.36e6
-    centers8 = [(k - 3.5) * 1.92e6 for k in range(8)]
+    rate8, centers8 = RATE8, CENTERS8
     ids8 = [c for c, _ in cells8]
-    band8 = make_band(dev, synth, rate8,
-                      [(c, cid, 50, 0.0) for c, cid in zip(centers8, ids8)],
-                      2.0, seed=52)
+    band8 = band_of_eight(dev, synth)
     wchunk = 19200 * 8                       # one radio frame of band
     n_narrow = band8.size // 8
     feed_wide(WidebandTrigger(rate8, centers8, psr_threshold=4,
@@ -839,6 +1252,8 @@ def main() -> int:
             == list(enumerate(ids8)), (transport, got)
         assert int(w.backlog.max()) <= 9600, w.backlog
         wide_events[transport], wide_trigs[transport] = got, w
+        if transport == "f32":
+            sps12 = n_narrow / wall
         path_launches["WidebandTrigger"] += n_launch
         log(f"WidebandTrigger(8 x 15.36 Msps) {transport}: "
             f"{n_narrow / wall / 1e6:.3f} M narrow samples/s per carrier of "
@@ -987,7 +1402,7 @@ def main() -> int:
             assert found == list(enumerate(ids8)), (mod, found)
             log(f"{mod} as a subprocess on a 0.5 s capture at 15.36 Msps: "
                 f"all 8 cells, {time.perf_counter() - t0:.1f} s with start-up")
-    del late, band8
+    del late
 
     # ---- 15. snr_sweep and pbch_sweep ----
     frame77 = synth.synthesize_frame(77, nof_prb_field=25)
@@ -1074,7 +1489,165 @@ def main() -> int:
              at=start)
         del buf
 
-    # ---- 18. under the profiler: the small launches' host side, then each
+    # ---- 18. the process mesh: NCCL at world size 1, in this process ----
+    dev1 = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout=120)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh1 = make_mesh()
+        assert mesh1.shape == {"ch": 1, "t": 1} and mesh1.device == dev1
+        x = torch.arange(6.0, device=dev).reshape(2, 3)
+        assert torch.equal(meshmod.all_gather(x, mesh1, "ch", dim=1), x)
+        sixteen = tuple(c[:16, :trig.LOOKBACK + 50 * 9600 + trig.WINDOW]
+                        .contiguous() for c in big)
+        (st_m, out_m), n_launch, _ = counted(
+            lambda: channel_scan(sixteen, 50, 4.0, mesh=mesh1))
+        st_0, out_0 = channel_scan(sixteen, 50, 4.0)
+        for got, ref in ((out_m, out_0), (st_m, st_0)):
+            for f in ref._fields:
+                g, r = getattr(got, f), getattr(ref, f)
+                assert g.dtype == r.dtype and torch.equal(g, r), f
+        assert out_m.track_event.any(dim=0).any(dim=-1).all()
+        path_launches["mesh of one rank (NCCL)"] = n_launch
+        t0 = time.perf_counter()
+        shards, n_launch, _ = counted(lambda: time_sharded_scan(
+            pair_np(stream_cell(synth, 125, 50, 1.0, seed=11)), mesh1, 4.0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = shards.track_event.cpu().numpy()
+        assert ev.shape == (1, 200, 3) and ev.any()
+        assert set(shards.cell_id.cpu().numpy()[ev].tolist()) == {125}
+        path_launches["mesh of one rank (NCCL)"] += n_launch
+        log(f"NCCL world of 1: make_mesh() = {mesh1.shape}; "
+            f"channel_scan(mesh=) of 16 x 50 = channel_scan() field for "
+            f"field, state too; time_sharded_scan of 1 s finds cell 125 in "
+            f"its one block of 200 steps ({wall * 1e3:.1f} ms wall, "
+            f"{n_launch} kernel launches)")
+        m = MultiTrigger(8, psr_threshold=4, transport="i16", mesh=mesh1)
+        got, n_launch, _ = counted(lambda: feed_all(m, np.stack(sigs)))
+        assert tagged(gather_events(got, mesh1)) \
+            == sorted(events7, key=lambda e: e[0]), (tagged(got), events7)
+        path_launches["mesh of one rank (NCCL)"] += n_launch
+        w = WidebandTrigger(rate8, centers8, psr_threshold=4,
+                            transport="f32", mesh=mesh1)
+        (got, _), n_launch, _ = counted(lambda: feed_wide(w, band8, wchunk))
+        assert sorted(got, key=lambda e: e[0]) \
+            == sorted(wide_events["f32"], key=lambda e: e[0]), got
+        path_launches["mesh of one rank (NCCL)"] += n_launch
+        # a checkpoint saved with the mesh, loaded without it
+        cut = 45 * 19200
+        late8 = late_streams(sigs, cut)
+        whole = MultiTrigger(8, psr_threshold=4, transport="f32",
+                             device="cuda")
+        before_ref = tagged(feed_all(whole, late8, 0, cut))
+        after_ref = tagged(feed_all(whole, late8, cut))
+        first = MultiTrigger(8, psr_threshold=4, transport="f32", mesh=mesh1)
+        before = tagged(feed_all(first, late8, 0, cut))
+        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+            first.save_state(f"{tmp}/mesh.npz")
+            second = MultiTrigger(8, psr_threshold=4, transport="f32",
+                                  device="cuda")
+            second.load_state(f"{tmp}/mesh.npz")
+        resumed = tagged(feed_all(second, late8, cut))
+        assert before == before_ref and resumed == after_ref, \
+            (before, resumed, after_ref)
+        assert sorted(n for n, _ in before) == [0, 1, 2, 3] \
+            and sorted(n for n, _ in resumed) == [4, 5, 6, 7]
+        assert (second.tracking_score == whole.tracking_score).all()
+        log("NCCL world of 1: MultiTrigger(8, mesh=) i16 and "
+            "WidebandTrigger(mesh=) f32 publish what phases 7 and 12 did; a "
+            "checkpoint saved with the mesh resumes without it (4 late "
+            "cells)")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 19. the kernel at the shapes a rank gets ----
+    for c in (64, 32):
+        part = tuple(x[:c] for x in big)
+        case(f"grid C={c} g=25 (a rank of {C_BIG // c})", part, 25 * 75,
+             torch.bfloat16,
+             lambda: mf.group_power(*part, lo, 25, torch.bfloat16),
+             lambda: mf.group_power_plain(*part, lo, 25, torch.bfloat16))
+    for n_rows in (2, 4):
+        gen = torch.Generator(device=dev).manual_seed(40 + n_rows)
+        mirror = tuple(torch.randn((n_rows, cap), generator=gen, device=dev)
+                       for _ in range(2))
+        case(f"mirror N={n_rows} g=32 (a rank of {8 // n_rows})", mirror,
+             32 * 75, torch.bfloat16,
+             lambda: mf.group_power(*mirror, at, 32, torch.bfloat16),
+             lambda: mf.group_power_plain(*mirror, at, 32, torch.bfloat16),
+             at=at)
+        del mirror
+
+    # ---- 20. several ranks on the one card (gloo), then 21. a card a rank
+    want, one_ms = one_process_scan(big, channel_scan, trig)
+    log(f"channel_scan 128 x 100 in one process: {one_ms:.1f} ms (best of "
+        f"3; phase 5's scan_engine: {ms_dispatch:.1f} ms) [{smi}]")
+    big = small = win = None            # room for the ranks' own buffers
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        tmp = pathlib.Path(tmp)
+        np.save(tmp / "sigs.npy", np.stack(sigs))
+        np.save(tmp / "band8.npy", band8)
+        ranks2 = scan_on_ranks(2, tmp, "gloo", "scan", want, cells_big,
+                               one_ms, smi, trig)
+        ranks4 = scan_on_ranks(4, tmp, "gloo", "scan,shards,stream", want,
+                               cells_big, one_ms, smi, trig)
+        shards_line(ranks4, smi)
+        merged = json.loads((tmp / "stream_events.json").read_text())
+        merged = {k: [(n, f) for n, f in v] for k, v in merged.items()}
+        assert merged["multi"] == sorted(events7, key=lambda e: e[0]), \
+            (merged["multi"], events7)
+        assert merged["wide"] == sorted(wide_events["f32"],
+                                        key=lambda e: e[0]), merged["wide"]
+        assert merged["before"] == sorted(before_ref, key=lambda e: e[0])
+        second = MultiTrigger(8, psr_threshold=4, transport="f32",
+                              device="cuda")
+        second.load_state(str(tmp / "sharded.npz"))
+        resumed = tagged(feed_all(second, late8, cut))
+        assert resumed == after_ref, (resumed, after_ref)
+        assert (second.tracking_score == whole.tracking_score).all()
+        for key, label, one in (("multi", "MultiTrigger(8, mesh=) i16", sps7),
+                                ("wide", "WidebandTrigger(8 centres, mesh=) "
+                                 "f32", sps12)):
+            n_each = sigs[0].size
+            slow = max(r[key]["wall_s"] for r in ranks4)
+            log(f"{label} over ch = 4 on one card: gathered events equal "
+                f"one process's; per rank ({ranks4[0][key]['rows']} streams "
+                f"each) M samples/s per stream "
+                + ", ".join(f"{n_each / r[key]['wall_s'] / 1e6:.3f}"
+                            for r in ranks4)
+                + f", slowest {n_each / slow / 1e6:.3f} against "
+                f"{one / 1e6:.3f} in one process; dispatches a rank "
+                + ", ".join(str(r[key]["dispatches"]) for r in ranks4)
+                + "; rank 0 stages (mean ms x count): "
+                + ", ".join(f"{k} {v[0]:.3f} x {v[1]}"
+                            for k, v in ranks4[0][key]["stages"].items())
+                + f" [{smi}]")
+        log("a checkpoint saved by the 4 ranks at the cut resumes in a "
+            "trigger without a mesh: the 4 late cells, same scores")
+        path_launches["ranks on one card (all ranks)"] = sum(
+            r["scan_launches"] for r in ranks2) + sum(
+            r["scan_launches"] + r["shards_launches"] + r["multi"]["launches"]
+            + r["wide"]["launches"] for r in ranks4)
+        rank_table = {
+            "one_process_ms": one_ms,
+            "ch2": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks2],
+                    "full_ms": [min(r["scan_full_ms"]) for r in ranks2],
+                    "call_ms": [min(r["scan_call_ms"]) for r in ranks2],
+                    "launches": [r["scan_launches"] for r in ranks2]},
+            "ch4": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks4],
+                    "full_ms": [min(r["scan_full_ms"]) for r in ranks4],
+                    "call_ms": [min(r["scan_call_ms"]) for r in ranks4],
+                    "launches": [r["scan_launches"] for r in ranks4]}}
+        n_cards = cards_phase(tmp, want, cells_big, one_ms, smi, trig)
+        if n_cards:
+            path_launches["a card a rank (NCCL, all ranks)"] = n_cards
+    del band8, late8
+    big, _ = big_buffer(dev, synth, trig)       # the profiler's shapes
+    small = tuple(c[:1].contiguous() for c in big)
+    win = tuple(c[:8, lo:lo + correlate.V2_WINDOW].contiguous() for c in big)
+
+    # ---- 22. under the profiler: the small launches' host side, then each
     # launch's device kernels by name ----
     launch_shapes = ((f"grid C={C_BIG} g=25",
                       lambda dt: mf.group_power(*big, lo, 25, dt)),
@@ -1115,7 +1688,7 @@ def main() -> int:
         f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
         f"idle share {1 - busy / wall:.3f} [{smi}]")
 
-    # ---- 19. nothing of JAX ----
+    # ---- 23. nothing of JAX ----
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "ltetrigger_tpu")]
     assert not bad, f"imported {bad[:5]}"
@@ -1129,7 +1702,7 @@ def main() -> int:
         assert root in f.parents, f"{m.__name__} loaded from {f}"
     log(f"{len(ported)} modules of the port, all under {root.name}/; no jax")
 
-    log(json.dumps({"rows": list(rows.values())}))
+    log(json.dumps({"rows": list(rows.values()), "ranks": rank_table}))
     c128 = rows[(f"grid C={C_BIG} g=25", str(torch.bfloat16))]
     log(smi)
     print(json.dumps({"kernels": [{

@@ -17,7 +17,9 @@ Layers (bottom-up):
   csrc/         the kernels' CUDA C++ sources (built at first use)
   models/       the grid engine (passes A, B, C), the one-shot `search`, and
                 the streaming `Trigger`, `MultiTrigger`, `WidebandTrigger`
-  parallel/     `channel_scan` over C channels on one device
+  parallel/     the process mesh on torch.distributed (one process per
+                device; axes `ch` and `t`), `channel_scan(mesh=)`,
+                `time_sharded_scan` with the halo exchange, `gather_events`
   runtime/      host-side state: the tracked-cell store, the chunk buffer
   utils/        engineering notation, StageTimer, torch.profiler tracing
   apps/         the CLIs: cell_search_file, live_monitor, wideband_scan,
@@ -43,6 +45,10 @@ def __getattr__(name):
     if name == "WidebandTrigger":
         from .models.wideband import WidebandTrigger
         return WidebandTrigger
+    if name in ("make_mesh", "init_distributed", "channel_scan",
+                "time_sharded_scan", "halo_exchange_right", "gather_events"):
+        from . import parallel
+        return getattr(parallel, name)
     if name == "CellStore":
         from .runtime.cellstore import CellStore
         return CellStore

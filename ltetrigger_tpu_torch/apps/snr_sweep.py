@@ -66,7 +66,7 @@ def _on_device(x: np.ndarray, dev):
 def snr_sweep(iq: np.ndarray, sample_rate: float, snrs_db,
               seconds: float = 0.5, psr_threshold: float = 4.0,
               seed: int = 0, n_trials: int = 1, combine: bool = True,
-              channel_taps=None, device="cuda") -> list[dict]:
+              channel_taps=None, device="cuda", mesh=None) -> list[dict]:
     """Detection stats per SNR point. SNR = signal power / noise power.
 
     n_trials > 1 runs that many independent noise realizations per SNR
@@ -77,7 +77,10 @@ def snr_sweep(iq: np.ndarray, sample_rate: float, snrs_db,
     passes the signal through a static multipath channel before noise: SNR
     stays defined at the receiver (post-channel signal power is
     renormalized to 1).  Runs on `device` ("cuda" by default; raises if CUDA
-    is absent); see the module docstring for what `seed` reproduces.
+    is absent); see the module docstring for what `seed` reproduces.  With
+    a `parallel.Mesh` every rank calls it with the same arguments, builds
+    the channels on `mesh.device` and scans its share of them
+    (`channel_scan(mesh=)`); every rank returns the whole curve.
     """
     import torch
 
@@ -86,7 +89,7 @@ def snr_sweep(iq: np.ndarray, sample_rate: float, snrs_db,
     from ..ops import resample
     from ..parallel import channel_scan
 
-    dev = api.resolve_device(device)
+    dev = api.resolve_device(device if mesh is None else mesh.device)
     snrs_db = list(snrs_db)
     ratio = int(round(sample_rate / SAMPLE_RATE))
     d = resample.decimate(_on_device(iq, dev), ratio)
@@ -112,7 +115,7 @@ def snr_sweep(iq: np.ndarray, sample_rate: float, snrs_db,
     n_steps = total // trig.HALF_FRAME_LENGTH
     _, out = channel_scan(buffers, n_steps,
                           api.ensure_safe_threshold(psr_threshold),
-                          combine=combine)
+                          mesh=mesh, combine=combine)
 
     host = trig.unpack_output(trig.pack_output(out))   # [steps, C, R] each
     results = []
@@ -141,7 +144,7 @@ def pbch_sweep(pbch_rel_db, cell_id: int = 77, nof_prb_field: int = 50,
                n_ttis: int = 6, n_trials: int = 8,
                snr_sync_db: float = 0.0, psr_threshold: float = 4.0,
                seed: int = 0, combine: bool = True,
-               device="cuda") -> list[dict]:
+               device="cuda", mesh=None) -> list[dict]:
     """P(MIB publish) vs PBCH resource-element level, in the PBCH-LIMITED
     regime: PSS/SSS/CRS ride at `snr_sync_db` (default 0 dB, where
     acquisition always succeeds), and ONLY the PBCH REs are attenuated by
@@ -157,14 +160,15 @@ def pbch_sweep(pbch_rel_db, cell_id: int = 77, nof_prb_field: int = 50,
 
     Device shape: ONE scan over [n_points * n_trials] channels, built on
     `device` from two uploaded streams (the sync-only and the PBCH-only
-    component; the PBCH level is a per-channel linear gain)."""
+    component; the PBCH level is a per-channel linear gain).  `mesh`: as in
+    `snr_sweep`."""
     import torch
 
     from ..ltecore.synth import synthesize_frame_ports
     from ..models import api, trigger as trig
     from ..parallel import channel_scan
 
-    dev = api.resolve_device(device)
+    dev = api.resolve_device(device if mesh is None else mesh.device)
     pbch_rel_db = list(pbch_rel_db)
     f0, f1 = [], []
     for f in range(4 * n_ttis):
@@ -190,7 +194,7 @@ def pbch_sweep(pbch_rel_db, cell_id: int = 77, nof_prb_field: int = 50,
     n_steps = s0.size // trig.HALF_FRAME_LENGTH
     _, out = channel_scan(buffers, n_steps,
                           api.ensure_safe_threshold(psr_threshold),
-                          combine=combine)
+                          mesh=mesh, combine=combine)
 
     host = trig.unpack_output(trig.pack_output(out))   # [steps, C, R] each
     results = []

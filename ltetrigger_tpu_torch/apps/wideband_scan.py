@@ -22,9 +22,12 @@ import numpy as np
 
 def wideband_scan(iq: np.ndarray, sample_rate: float, center_offsets_hz,
                   seconds: float = 0.5, psr_threshold: float = 4.0,
-                  device="cuda") -> list[dict]:
+                  device="cuda", mesh=None) -> list[dict]:
     """-> list of {center_offset_hz, detected, cell fields...} per channel.
-    Runs on `device` ("cuda" by default; raises if CUDA is absent)."""
+    Runs on `device` ("cuda" by default; raises if CUDA is absent).  With a
+    `parallel.Mesh` every rank calls it with the same capture, channelizes
+    on `mesh.device`, scans its share of the centres (`channel_scan(mesh=)`)
+    and returns every centre's record."""
     import torch
 
     from ..ltecore.constants import SAMPLE_RATE
@@ -33,7 +36,7 @@ def wideband_scan(iq: np.ndarray, sample_rate: float, center_offsets_hz,
     from ..parallel import channel_scan
     from ..runtime.cellstore import PHICH_RES_STR
 
-    dev = api.resolve_device(device)
+    dev = api.resolve_device(device if mesh is None else mesh.device)
     centers = list(center_offsets_hz)
     total = int(seconds * SAMPLE_RATE)
     need_wide = int(seconds * sample_rate)
@@ -47,7 +50,8 @@ def wideband_scan(iq: np.ndarray, sample_rate: float, center_offsets_hz,
 
     n_steps = total // trig.HALF_FRAME_LENGTH
     _, out = channel_scan(buffers, n_steps,
-                          api.ensure_safe_threshold(psr_threshold))
+                          api.ensure_safe_threshold(psr_threshold),
+                          mesh=mesh)
 
     # every field to the host once, in one copy: [steps, C, R] each
     host = trig.unpack_output(trig.pack_output(out))

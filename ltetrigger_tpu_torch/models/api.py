@@ -361,7 +361,11 @@ class _StreamPipeline:
     Where the samples come from is behind four methods, which
     `models.wideband.WidebandTrigger` overrides to feed every stream from
     one wide host buffer: `_fed_min`, `_backlog`, `_trim_front` and
-    `_upload_segment`."""
+    `_upload_segment`.
+
+    `first_stream` is the global index of this pipeline's first stream: a
+    rank of a process mesh runs the pipeline over its own streams only, while
+    `stores`, events and callbacks keep the global stream indices."""
 
     # rebase threshold (class attribute so tests can exercise the wrap
     # without streaming 4.7 minutes of samples).  Must stay a multiple of
@@ -373,13 +377,14 @@ class _StreamPipeline:
     def __init__(self, batch: tuple, psr_threshold: float, track_after: int,
                  track_every: int, stores: list, on_track, on_drop,
                  pipeline: int, transport: str, cfo_search_range: int,
-                 device):
+                 device, first_stream: int = 0):
         if transport not in self.TRANSPORTS:
             raise ValueError(f"transport {transport!r} is not one of "
                              f"{self.TRANSPORTS}")
         self.device = resolve_device(device)
         self._batch = tuple(batch)
         self.n = math.prod(self._batch)
+        self._first = int(first_stream)
         self.transport = transport
         self.psr_threshold = ensure_safe_threshold(psr_threshold)
         self.exit_on_success = False
@@ -536,6 +541,12 @@ class _StreamPipeline:
             buf.drop_front(keep_from)
         self._base += keep_from
 
+    def _trim_drained(self) -> None:
+        """Discard host samples below every root's drained position."""
+        keep_from = int(self._pos_lb.min()) - LOOKBACK - self._base
+        if keep_from > 0:
+            self._trim_front(keep_from)
+
     def _dispatch_one(self, published: list) -> bool:
         """Dispatch one adaptive-depth scan if every stream's buffer
         (estimated) holds enough samples; harvest eagerly when over pipeline
@@ -560,10 +571,7 @@ class _StreamPipeline:
                 return False
 
         with self.timer.stage("prep"):
-            # discard host samples below every root's drained position
-            keep_from = int(self._pos_lb.min()) - LOOKBACK - self._base
-            if keep_from > 0:
-                self._trim_front(keep_from)
+            self._trim_drained()
             # sync the device mirror up to what this dispatch can reach
             # (not the whole host backlog: it may exceed the mirror)
             hi_need = (self._estimated_min_pos()
@@ -745,10 +753,11 @@ class _StreamPipeline:
         pos_after = pos_before.reshape(shape[1:])[None] \
             + np.cumsum(h.consumed, axis=0)
         for s, n, r in zip(*np.nonzero(h.track_event | h.drop_event)):
-            tag = (int(n),) if self._tag_stream else ()
+            store = self.stores[self._first + n]
+            tag = (self._first + int(n),) if self._tag_stream else ()
             if h.drop_event[s, n, r]:
                 cid = int(h.drop_cell_id[s, n, r])
-                self.stores[n].drop_cell_id(cid)
+                store.drop_cell_id(cid)
                 if self.on_drop:
                     self.on_drop(*tag, cid)
             if h.track_event[s, n, r]:
@@ -758,7 +767,7 @@ class _StreamPipeline:
                     h.phich_res[s, n, r], h.sfn_offset[s, n, r],
                     bool(h.normal_cp[s, n, r]),
                     timestamp=self._stamp(int(n), int(pos_after[s, n, r])))
-                self.stores[n].track_cell(cell)
+                store.track_cell(cell)
                 published.append((*tag, cell) if tag else cell)
                 if self.on_track:
                     self.on_track(*tag, cell)
@@ -791,14 +800,15 @@ class _StreamPipeline:
         return {f"state_{k}": v
                 for k, v in trig.state_to_numpy(self._state).items()}
 
-    def _restore(self, data, bufs: list) -> None:
+    def _restore(self, data, bufs: list, rows: slice = slice(None)) -> None:
         """Take the carry, the stream base and the threshold from an open
-        checkpoint, with `bufs` the per-stream buffered samples."""
+        checkpoint, with `bufs` the per-stream buffered samples; `rows`
+        picks this pipeline's streams from a checkpoint of more."""
         self._state = trig.state_from_numpy(
-            {k[len("state_"):]: data[k] for k in data.files
+            {k[len("state_"):]: data[k][rows] for k in data.files
              if k.startswith("state_")}, self.device)
         # no dispatch outstanding after load: drained positions are exact
-        self._pos_lb = np.asarray(data["state_pos"]).astype(np.int64)
+        self._pos_lb = np.asarray(data["state_pos"][rows]).astype(np.int64)
         self._grid = int(self._pos_lb.min())
         self._outstanding.clear()
         for q in self._anchors:     # arrival times are not checkpointed:

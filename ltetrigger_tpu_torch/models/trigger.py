@@ -416,7 +416,7 @@ def _capture_chain(state0: TriggerState, raw: RawStepOutput, sss_valid,
     cum_excl = torch.cumsum(elig_i, dim=0) - elig_i
     want_cap = eligible & (cum_excl < k)
     slot = torch.where(want_cap, cum_excl, -1)
-    overflow = (want_any & (~want_cap)).to(torch.int32).sum(dim=0)
+    overflow = (want_any & (~want_cap)).sum(dim=0, dtype=torch.int32)
     cnt = want_cap.to(torch.int32).sum(dim=0)
 
     # (pending_fresh, mib_cell) chain in closed form: a capture sets the
@@ -695,6 +695,21 @@ def unpack_output(arr) -> StepOutput:
             kw[f] = col.astype(np.float32)
         else:
             kw[f] = col.astype(np.int32)
+    return StepOutput(**kw)
+
+
+def unpack_output_tensors(packed: torch.Tensor) -> StepOutput:
+    """Inverse of pack_output, as tensors on the packed tensor's device with
+    the fields' own types (exact: see pack_output)."""
+    kw = {}
+    for i, f in enumerate(StepOutput._fields):
+        col = packed[..., i]
+        if f in _BOOL_FIELDS:
+            kw[f] = col > 0.5
+        elif f in _F32_FIELDS:
+            kw[f] = col
+        else:
+            kw[f] = col.to(torch.int32)
     return StepOutput(**kw)
 
 

@@ -65,7 +65,9 @@ class WidebandTrigger(MultiTrigger):
 
     Feed with process_wide(samples): complex64 at `sample_rate`.  All other
     MultiTrigger surface (flush, stores, telemetry, checkpoints,
-    cfo_search_range, transports incl. packed i4, `device=`) is inherited;
+    cfo_search_range, transports incl. packed i4, `device=`, `mesh=`) is
+    inherited: with a mesh every rank is fed the same wide stream, quantises
+    and uploads it, and channelizes only its own centres;
     the per-stream feeding methods are disabled (one pipe feeds everyone, so
     shared consumption never stalls and fill_gap is just zeros into the wide
     stream).
@@ -87,7 +89,9 @@ class WidebandTrigger(MultiTrigger):
                                  f"{sample_rate/1e6:.2f} MHz band")
         super().__init__(len(self.centers), transport=transport, **kwargs)
 
-        self._offs_norm = np.asarray(self.centers,
+        # this process's carriers (all of them without a mesh)
+        own = slice(self.local_streams.start, self.local_streams.stop)
+        self._offs_norm = np.asarray(self.centers[own],
                                      dtype=np.float64) / self.sample_rate
         self._ramps = api._to_device(chan._ramp_table(self._offs_norm),
                                      self.device)
@@ -185,24 +189,25 @@ class WidebandTrigger(MultiTrigger):
     # ---- checkpoint ------------------------------------------------------
     def save_state(self, path: str) -> None:
         """Checkpoint the [N] carry and the buffered wide samples, after a
-        flush; the keys are the JAX package's."""
-        self.flush()
-        np.savez(path, n=self.n, base=self._base,
-                 psr_threshold=self.psr_threshold, cfo_bins=self._cfo_bins,
-                 wide=self._wbuf.to_array(), wbase=self._wbase,
-                 wabs=self._wabs, sample_rate=self.sample_rate,
-                 centers=np.asarray(self.centers), **self._state_arrays())
+        flush; the keys are the JAX package's.  With a mesh a collective:
+        every rank must call it, at the same point of its feed (the wide
+        buffer is then the same on every rank)."""
+        self._settle()
+        rows = self._gather_checkpoint({})
+        self._write_checkpoint(
+            path, wide=self._wbuf.to_array(), wbase=self._wbase,
+            wabs=self._wabs, sample_rate=self.sample_rate,
+            centers=np.asarray(self.centers), **rows)
 
     def load_state(self, path: str) -> None:
         with np.load(path) as data:
-            if int(data["n"]) != self.n \
+            if int(data["n"]) != self.n_streams \
                     or float(data["sample_rate"]) != self.sample_rate \
                     or not np.allclose(np.asarray(data["centers"]),
                                        np.asarray(self.centers)):
                 raise ValueError("checkpoint holds another rate or centre "
                                  "plan than this WidebandTrigger")
-            self._restore(data, [])
+            self._restore_rows(data, [])
             self._wbuf = ChunkBuffer(data["wide"])
             self._wbase = int(data["wbase"])
             self._wabs = int(data["wabs"])
-            self._cfo_bins = np.asarray(data["cfo_bins"]).astype(np.int32)

@@ -14,7 +14,7 @@ import torch
 
 from ..ltecore import pss as pssmod
 from ..ltecore.constants import SYMBOL_SZ
-from . import cplx
+from . import cplx, dft
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +51,29 @@ def cfo_estimate(pss_symbol: cplx.Pair, replica: cplx.Pair) -> torch.Tensor:
                            cplx.index(replica, (..., slice(h, None))))
     prod = cplx.mul(cplx.conj(y0), y1)               # conj(y0) * y1
     return (cplx.angle(prod) / math.pi).to(torch.float32)
+
+
+def cfo_correct(x: cplx.Pair, freq) -> cplx.Pair:
+    """Multiply by exp(2j*pi*freq*n); freq in cycles/sample (a float or a
+    tensor of x's leading shape).
+
+    Matches srslte_cfo_correct's convention: the caller passes
+    freq = -mean_cfo / 128 to remove a +mean_cfo (subcarrier units) offset.
+    """
+    freq = torch.as_tensor(freq, dtype=torch.float32, device=x[0].device)
+    return cfo_rotate(x, freq, 0)
+
+
+def pss_chest(pss_symbol: cplx.Pair, n_id_2) -> cplx.Pair:
+    """LS channel estimate over the 62 PSS subcarriers: the received symbol's
+    spectrum times the conjugate replica of root `n_id_2` (an integer, or an
+    integer tensor of the symbol's leading shape).  The grid engine computes
+    the same estimate in pass C and surfaces it as
+    `Trigger.channel_estimate`.
+
+    pss_symbol: pair of [..., 128] -> pair of [..., 62]."""
+    rep = cplx.index(on_device("freq", str(pss_symbol[0].device)), n_id_2)
+    return cplx.mul_conj(dft.dft_sync(pss_symbol), rep)
 
 
 def cfo_rotate(x: cplx.Pair, freq: torch.Tensor, offset: int) -> cplx.Pair:

@@ -17,6 +17,7 @@ CUDA kernel in ops/kernels/matched_filter.py.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -26,9 +27,47 @@ from ..ltecore.constants import HALF_FRAME_LENGTH, SYMBOL_SZ
 from . import cplx
 
 SEARCH_LEN = HALF_FRAME_LENGTH                   # 9600 candidate starts
+WINDOW_LEN = HALF_FRAME_LENGTH + SYMBOL_SZ - 1   # samples the filter reads
 N_ROOTS = 3
 NBLK = HALF_FRAME_LENGTH // SYMBOL_SZ            # 75
 V2_WINDOW = HALF_FRAME_LENGTH + SYMBOL_SZ        # 9728 samples read
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel() -> np.ndarray:
+    """[6, 2, 128] float32 conv kernel for all three roots: out 2t (re of
+    root t) = [rr_t, ri_t], out 2t + 1 (im of root t) = [-ri_t, rr_t]."""
+    rr, ri = cplx.const(pssmod.pss_time())       # each [3, 128]
+    k = np.zeros((2 * N_ROOTS, 2, SYMBOL_SZ), dtype=np.float32)
+    for t in range(N_ROOTS):
+        k[2 * t, 0] = rr[t]
+        k[2 * t, 1] = ri[t]
+        k[2 * t + 1, 0] = -ri[t]
+        k[2 * t + 1, 1] = rr[t]
+    return k
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_on(device: str) -> torch.Tensor:
+    return torch.from_numpy(_kernel()).to(device)
+
+
+def pss_correlate_power(window: cplx.Pair) -> torch.Tensor:
+    """|corr|^2 for all 3 roots over windows, as ONE dense [2-in, 6-out,
+    128-wide] real convolution (c[n] = sum_k x[n + k] conj(r[k])).  It never
+    touches the Toeplitz weights, so it cross-checks the matched-filter
+    kernel and its plain version independently.
+
+    window: pair of [..., >= WINDOW_LEN] float32
+    returns: [..., 3, SEARCH_LEN] float32
+    """
+    wr, wi = window
+    batch = wr.shape[:-1]
+    x = torch.stack([wr[..., :WINDOW_LEN], wi[..., :WINDOW_LEN]], dim=-2)
+    y = torch.nn.functional.conv1d(x.reshape(-1, 2, WINDOW_LEN),
+                                   _kernel_on(str(wr.device)))  # [B, 6, 9600]
+    y = y.reshape(batch + (N_ROOTS, 2, SEARCH_LEN))
+    return y[..., 0, :] ** 2 + y[..., 1, :] ** 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,6 +200,40 @@ def pss_correlate_power_cfo_bins(window: cplx.Pair,
     power = c[..., 0, :] ** 2 + c[..., 1, :] ** 2    # [.., 75, bins, 3, 128]
     return power.movedim(-4, -2).reshape(batch + (len(bins), N_ROOTS,
                                                   SEARCH_LEN))
+
+
+def _kernel_power(window: cplx.Pair, matmul_dtype) -> torch.Tensor:
+    """The window contract through the hand-written matched-filter kernel
+    (CUDA tensors; its plain version, `pss_correlate_power_v2`, on CPU
+    tensors), for any leading shape."""
+    from .kernels import matched_filter
+    wr, wi = window
+    batch = wr.shape[:-1]
+    flat = tuple(c.reshape(-1, c.shape[-1]).contiguous() for c in window)
+    power = matched_filter.pss_correlate_power(flat, matmul_dtype)
+    return power.reshape(batch + power.shape[1:])
+
+
+def pss_correlate_power_fast(window: cplx.Pair) -> torch.Tensor:
+    """The blocked-Toeplitz correlation with bf16 matmul inputs (f32
+    accumulation): on a card the matched-filter kernel's tensor-core body.
+    Keeps every f32 peak position (tests/test_torch_standalone_ops.py).
+
+    window: pair of [..., >= V2_WINDOW] float32
+    returns: [..., 3, SEARCH_LEN] float32
+    """
+    return _kernel_power(window, torch.bfloat16)
+
+
+# LTETRIGGER_CORRELATOR, read at import as in the JAX package: the grid
+# engine's pass A always runs the blocked-Toeplitz form and takes the
+# variable as a PRECISION switch ("fast" = bf16 inputs, the default; anything
+# else = f32).  The conv form ("v1") stays the independent cross-check behind
+# these standalone entry points.
+_IMPLS = {"fast": pss_correlate_power_fast,
+          "v2": functools.partial(_kernel_power, matmul_dtype=torch.float32),
+          "v1": pss_correlate_power}
+default_power = _IMPLS[os.environ.get("LTETRIGGER_CORRELATOR", "fast")]
 
 
 def peak_and_psr(power: torch.Tensor, lobe_limit: int = 64):

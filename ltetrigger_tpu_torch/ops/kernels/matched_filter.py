@@ -29,7 +29,11 @@ hi/lo split of both operands (`split_tf32`), which keeps the float32 result
 to ~1e-6 relative; the plain version is one float32 matmul.
 
 The kernel is compiled with nvcc at first use into ltetrigger_tpu_torch/
-_build/ (keyed by a hash of the sources) and bound with ctypes.
+_build/ (keyed by a hash of the sources) and bound with ctypes.  Several
+processes (the ranks of a mesh) may reach first use at once: each compiles
+to a temporary name of its own and renames it into place, and a rename is
+atomic, so no process ever loads a half-written library; at worst two of
+them compile the same sources.  There is no lock file to go stale.
 """
 
 from __future__ import annotations
@@ -130,7 +134,9 @@ def build() -> tuple[pathlib.Path, float]:
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
                            f"{done.stdout}{done.stderr}")
-    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(done.stdout + done.stderr)
+    os.replace(tmp_log, lib.with_suffix(".log"))
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ltecore import coding, scrambling
-from ..ltecore.constants import (NOF_PRB_TABLE, SYMBOL_SZ,
+from ..ltecore.constants import (NOF_PRB_TABLE, SLOT_LENGTH, SYMBOL_SZ,
                                  symbol_data_offsets)
 from . import cplx, dft
 from .viterbi import viterbi_decode_wa
@@ -299,6 +299,17 @@ def pbch_quarter_llrs_slot1(slot1_td: cplx.Pair, cell_id: torch.Tensor,
                         tabs["dematch"])
 
 
+def pbch_quarter_llrs(subframe: cplx.Pair, cell_id,
+                      normal_cp: bool) -> torch.Tensor:
+    """`pbch_quarter_llrs_slot1` of a whole subframe: pair of [..., 1920]
+    float32 (aligned: a subframe-0 candidate), cell_id an integer or an
+    integer tensor of the leading shape -> [..., 3, 4, 120]."""
+    cell_id = torch.as_tensor(cell_id, device=subframe[0].device)
+    return pbch_quarter_llrs_slot1(
+        cplx.index(subframe, (..., slice(SLOT_LENGTH, 2 * SLOT_LENGTH))),
+        cell_id, bool(normal_cp))
+
+
 def quarter_llrs_both_cp(slot1_td: cplx.Pair, cell_id: torch.Tensor
                          ) -> torch.Tensor:
     """[..., 2, 3, 4, 120]: quarter LLR contributions under both CP
@@ -385,3 +396,50 @@ def search_and_unpack(llrs12: torch.Tensor, quarter_of: torch.Tensor):
         "quarter": pick(quarter_of.to(torch.int32)),
         "metric": pick(res["metric"].reshape(bshape + (12,))),
     }
+
+
+def mib_decode(subframe: cplx.Pair, cell_id, normal_cp: bool):
+    """Stateless single-subframe MIB decode attempt.
+
+    subframe:  pair of [..., 1920] float32 (aligned: subframe 0 candidate)
+    cell_id:   integer, or integer tensor of the leading shape
+    normal_cp: bool, the CP hypothesis to run (a host value)
+
+    returns dict of [...] tensors: found (bool), nof_prb, nof_ports,
+    phich_ext, phich_res, sfn_offset, quarter, metric
+    """
+    contrib = pbch_quarter_llrs(subframe, cell_id, normal_cp)  # [.., 3,4,120]
+    quarter_of = torch.remainder(
+        torch.arange(12, device=contrib.device), 4)
+    return search_and_unpack(
+        contrib.reshape(contrib.shape[:-3] + (12, 120)),
+        quarter_of.expand(contrib.shape[:-3] + (12,)))
+
+
+def mib_combine_decode(subframe: cplx.Pair, cell_id, normal_cp: bool,
+                       llr_acc: torch.Tensor, n):
+    """MIB decode with soft-combining across the 40 ms PBCH TTI.
+
+    4 TTI-phase hypotheses are carried as an accumulator axis.  Under phase
+    h, subframe-0 attempt number n is quarter q = (n + h) mod 4 of a TTI; at
+    q == 0 that phase's accumulator restarts (a new TTI is a new codeword),
+    otherwise the contribution adds.  Phase h = (-n) mod 4 always restarts
+    fresh, so one hypothesis per attempt equals the stateless decode:
+    combining can only add sensitivity.  (The grid engine runs the same
+    chain batched over its captured candidates, trigger._decode_candidates.)
+
+    subframe:  pair of [1920] float32 (a subframe-0 candidate)
+    llr_acc:   [12, 120] float32 accumulator, index = port * 4 + phase
+    n:         attempts combined so far for this cell (a host integer or a
+               0-d integer tensor)
+
+    returns: (llr_acc_new [12, 120], result dict like mib_decode)
+    """
+    contrib = pbch_quarter_llrs(subframe, cell_id, normal_cp)   # [3, 4, 120]
+    q = torch.remainder(torch.as_tensor(n, device=contrib.device)
+                        + torch.arange(4, device=contrib.device), 4)
+    sel = contrib[:, q]                                         # [3, 4(h), 120]
+    acc = llr_acc.reshape(3, 4, 120)
+    acc_new = torch.where((q == 0)[None, :, None], sel, acc + sel)
+    res = search_and_unpack(acc_new.reshape(12, 120), q.tile(3))
+    return acc_new.reshape(12, 120), res

@@ -1,11 +1,15 @@
-"""Wrap-around tail-biting Viterbi decoder (K=7, rate 1/3).
+"""Batched tail-biting Viterbi decoders (K=7, rate 1/3).
 
-Port of ltetrigger_tpu/ops/viterbi.py `viterbi_decode_wa`: the 40-symbol
-LLR block is replicated 3x and one 64-state trellis runs over the 120
-symbols, two trellis stages per step (radix-4, 60 serial steps); the middle
-copy's decisions are the output, carried by register exchange.  The JAX
-package's exact decoder `viterbi_decode_tb` stays the golden reference the
-tests hold this one against.
+Port of ltetrigger_tpu/ops/viterbi.py.
+
+  * `viterbi_decode_wa` (what the engine runs): the 40-symbol LLR block is
+    replicated 3x and one 64-state trellis runs over the 120 symbols, two
+    trellis stages per step (radix-4, 60 serial steps); the middle copy's
+    decisions are the output, carried by register exchange.
+  * `viterbi_decode_tb`: exact maximum-likelihood tail-biting decode, the
+    64 possible initial states as a batch dimension and a traceback over
+    the stored decisions.  64x the state-metric traffic of `_wa`: the golden
+    reference of the tests, and for small offline batches.
 
 The JAX decoder keeps the 40 survivor bits in a uint32 plus a uint8
 register; PyTorch's unsigned shifts are partial, so here one int64 register
@@ -29,6 +33,44 @@ def _tables():
     prev_state, out_bits = coding.trellis_tables()
     return (np.asarray(prev_state, dtype=np.int32),
             np.asarray(out_bits, dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _trellis_on(device: str):
+    prev_state, out_bits = _tables()
+    return (torch.from_numpy(prev_state.astype(np.int64)).to(device),
+            torch.from_numpy(out_bits).to(device))
+
+
+def viterbi_decode_tb(llr: torch.Tensor):
+    """Exact tail-biting decode.
+
+    llr: [B, 40, 3] float32 — +1 favours bit 0 (matches out_bits polarity).
+    returns: (bits [B, 40] int32, metric [B] float32)
+    """
+    prev_state, out_bits = _trellis_on(str(llr.device))   # [64, 2], [64, 2, 3]
+    B, n = llr.shape[0], llr.shape[1]
+    dev = llr.device
+    # m[b, i, s]: best metric of a path from initial state i to state s
+    m = ((torch.eye(N_STATES, device=dev) - 1.0) * 1e9) \
+        .expand(B, N_STATES, N_STATES)
+    decisions = []
+    for t in range(n):
+        br = torch.einsum("sdc,bc->bsd", out_bits, llr[:, t])   # [B, 64, 2]
+        cand = m[:, :, prev_state] + br[:, None]                # [B, I, S, 2]
+        decisions.append(torch.argmax(cand, dim=-1))
+        m = cand.amax(dim=-1)
+    diag = torch.diagonal(m, dim1=1, dim2=2)                    # [B, I]
+    best_init = torch.argmax(diag, dim=-1)                      # [B]
+    metric = diag.amax(dim=-1)
+
+    bidx = torch.arange(B, device=dev)
+    s = best_init
+    bits = []
+    for dec in reversed(decisions):
+        bits.append((s >> 5) & 1)
+        s = prev_state[s, dec[bidx, best_init, s]]
+    return torch.stack(bits[::-1], dim=1).to(torch.int32), metric
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,10 @@
-"""Scaling out over channels.  `channel_scan` runs on one device; the mesh
-and the time-sharded scan of the JAX package's `parallel/` are not ported
-yet."""
+"""parallel: the process mesh (one process per device) and the sharded
+multi-channel / multi-device scans."""
 
-from .sharded import channel_scan
+from .mesh import (Mesh, gather_events, init_distributed,  # noqa: F401
+                   make_mesh)
+from .sharded import (channel_scan, halo_exchange_right,  # noqa: F401
+                      time_sharded_scan)
 
-__all__ = ["channel_scan"]
+__all__ = ["Mesh", "make_mesh", "init_distributed", "channel_scan",
+           "time_sharded_scan", "halo_exchange_right", "gather_events"]

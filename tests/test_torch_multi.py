@@ -243,8 +243,11 @@ def test_per_stream_cfo_probe_matches_jax(tmp_path):
 
 
 def test_multi_defaults_to_cuda_and_takes_no_mesh(monkeypatch):
-    with pytest.raises(TypeError, match="mesh"):
-        multi.MultiTrigger(2, mesh=None, device="cpu")
+    # mesh=None is the unmeshed trigger: it owns every stream
+    m = multi.MultiTrigger(2, mesh=None, device="cpu")
+    assert m.local_streams == range(2) and m.n_streams == m.n == 2
+    with pytest.raises(IndexError, match="stream 2"):
+        m.process(2, np.zeros(10, np.complex64))
     with pytest.raises(ValueError, match="cellstores"):
         multi.MultiTrigger(2, cellstores=[], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -397,7 +397,8 @@ def test_no_module_resolves_into_the_jax_package():
                  "runtime.native", "utils.profiling", "utils.eng_notation",
                  "models.api", "models.multi", "apps.live_monitor",
                  "models.wideband", "ops.channelize", "ops.device",
-                 "parallel.sharded", "apps.wideband_scan", "apps.snr_sweep",
+                 "parallel.sharded", "parallel.mesh", "apps.wideband_scan",
+                 "apps.snr_sweep",
                  "apps.run_flowgraph"):
         assert f"ltetrigger_tpu_torch.{want}" in names
     for name in names:
@@ -428,6 +429,8 @@ def test_cli_import_loads_no_jax():
         "import ltetrigger_tpu_torch.models.multi as m\n"
         "import ltetrigger_tpu_torch.models.wideband as w\n"
         "import ltetrigger_tpu_torch.parallel as p\n"
+        "from ltetrigger_tpu_torch.parallel import mesh, sharded\n"
+        "from ltetrigger_tpu_torch import make_mesh, gather_events\n"
         "from ltetrigger_tpu_torch.apps import (run_flowgraph, snr_sweep, "
         "wideband_scan)\n"
         "from ltetrigger_tpu_torch.ltecore import synth, refrx\n"

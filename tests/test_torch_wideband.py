@@ -242,8 +242,9 @@ def test_wideband_defaults_and_refusals(monkeypatch):
         wideband.WidebandTrigger(RATE, [3.0e6], device="cpu")
     with pytest.raises(ValueError, match="1.92"):
         wideband.WidebandTrigger(8.0e6, [0.0], device="cpu")
-    with pytest.raises(TypeError, match="mesh"):
-        wideband.WidebandTrigger(RATE, CENTERS, mesh=None, device="cpu")
+    # mesh=None is the unmeshed trigger: it owns every carrier
+    w = wideband.WidebandTrigger(RATE, CENTERS, mesh=None, device="cpu")
+    assert w.local_streams == range(3) and w.n_streams == w.n == 3
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         wideband.WidebandTrigger(RATE, CENTERS)
