@@ -92,14 +92,33 @@ Phases, in order; any failure exits non-zero:
  21. one rank per card over NCCL, only where there are two or more cards
      (one line says so otherwise): the `ch` and `t` cases of phase 20;
      `python3 chip_smoke.py --cards` runs phases 1, 2 and this one alone;
- 22. what uses torch.profiler, last, because a process that has run it may
+ 22-28. the example tools, examples/*_torch.py, in this process where no
+     ranks or environment variables are needed:
+ 22. `bench_sweep_torch` at C = 32, 256 and 1024 (0.55 s, 0.55 s and, under
+     its 6 GB cap, 0.275 s = 55 steps): cell 123 found at every point;
+ 23. `bench_attrib_torch passes` at C = 128 and 512 (host ms and device ms
+     of each rung), the C=128 `ABC_decode` rung equal to `scan_engine` on
+     the same buffer field for field; `decode` and `micro` at C=128 (pass
+     C's front end, codeword search and Viterbi; its small stages);
+ 24. `bench_attrib_torch groups` at C=512 with budgets 4096 and 16384, a
+     subprocess each: g = 5 and 25;
+ 25. `bench_stream_torch`: 0.5 s through a Trigger per transport (f32, i16,
+     i8) and through MultiTrigger(8) (i16, i4), cell 123 found in each;
+ 26. `seam_sweep_torch` on 4 gloo ranks sharing the card, 0 and -30 dB x 2
+     trials: P(detect) 1 and 0 for the continuous and the sharded scan;
+ 27. `make_snr_curve_torch --trials 2 --step 4` into a temporary directory:
+     both files written, all ten knees present;
+ 28. the kernel against its plain version at the grid shapes these tools
+     add: C=256 g=10, C=512 g=5, C=512 g=25, C=1024 g=1;
+ 29. what uses torch.profiler, last, because a process that has run it may
      launch more slowly afterwards: the small launches' host enqueue time
      and each launch's device kernels by name; a streaming dispatch's device
-     kernels, device time and idle share;
- 23. the port must not have imported jax or the JAX package, nor loaded a
+     kernels, device time and idle share; the 128 x 100 dispatch's device
+     time and its largest kernels;
+ 30. the port must not have imported jax or the JAX package, nor loaded a
      module from a file outside its own directory.
 
-Nothing of phases 1-17 was cut to make room for the later ones.
+Nothing of phases 1-21 was cut to make room for the later ones.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -1643,11 +1662,166 @@ def main() -> int:
         if n_cards:
             path_launches["a card a rank (NCCL, all ranks)"] = n_cards
     del band8, late8
+    torch.cuda.empty_cache()
+
+    # ---- 22-28. the example tools (examples/*_torch.py) ----
+    examples = pathlib.Path(__file__).resolve().parent / "examples"
+    sys.path.insert(0, str(examples))
+    import bench_attrib_torch as attrib
+    import bench_stream_torch as bstream
+    import bench_sweep_torch as bsweep
+    import make_snr_curve_torch as curvemod
+
+    def quiet(fn):
+        """fn() with its standard output kept: (result, the JSON lines it
+        printed)."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = fn()
+        return res, [json.loads(x) for x in out.getvalue().splitlines()
+                     if x.startswith("{")]
+
+    # 22. the channel-count sweep
+    sweep_recs = []
+    mf.launches = 0
+    for c in (32, 256, 1024):
+        sec, steps = bsweep.capped(c, 0.55, 100)
+        sweep_recs.append(quiet(lambda: bsweep.run_point(
+            c, steps, sec, 3, "cuda"))[0])
+    path_launches["bench_sweep_torch"] = mf.launches
+    assert all(r["detections_ok"] for r in sweep_recs), sweep_recs
+    log("bench_sweep_torch (channel_scan, best of 3): " + "; ".join(
+        f"C={r['channels']} x {r['n_steps']} steps {r['ms_per_dispatch']:.1f}"
+        f" ms, {r['msps']:.1f} M samples/s (first call "
+        f"{r['compile_s']:.2f} s)" for r in sweep_recs)
+        + f"; cell 123 found at every point; {mf.launches} kernel launches "
+        f"[{smi}]")
+
+    # 23. the pass ladder at C=128 and 512, pass C's stages at C=128
+    ladder = {}
+    mf.launches = 0
+    for c in (C_BIG, 512):
+        (rows_c, out_c), _ = quiet(lambda: attrib.cmd_passes(
+            attrib.parse(["passes", "--channels", str(c)])))
+        ladder[c] = rows_c
+        if c == C_BIG:              # the full rung is the engine's dispatch
+            buf = bsweep.make_buffer(c, 0.55, dev)
+            _, want = trig.scan_engine(buf, trig.init_state(batch=(c,),
+                                                            device=dev),
+                                       100, 4.0, grid0=trig.LOOKBACK)
+            del buf
+            for f in trig.StepOutput._fields:
+                g_, w_ = getattr(out_c, f), getattr(want, f)
+                if g_.dtype.is_floating_point:
+                    torch.testing.assert_close(g_, w_, rtol=1e-6, atol=1e-6)
+                else:
+                    assert torch.equal(g_, w_), f
+            assert out_c.track_event[:, :, 123 % 3].any(dim=0).all()
+        del out_c
+        log(f"bench_attrib_torch passes C={c} x 100 (host ms / device ms, "
+            f"best of 3): " + "; ".join(
+                f"{r['variant']} {r['ms_per_dispatch']:.2f} / "
+                f"{r['device_ms']:.2f} ({r['launches']} launches)"
+                for r in rows_c)
+            + (": ABC_decode = scan_engine field for field" if c == C_BIG
+               else "") + f" [{smi}]")
+    stages, _ = quiet(lambda: attrib.main(["decode", "--channels",
+                                           str(C_BIG)]))
+    ops, _ = quiet(lambda: attrib.main(["micro", "--channels", str(C_BIG)]))
+    path_launches["bench_attrib_torch passes"] = mf.launches
+    log(f"bench_attrib_torch decode C={C_BIG} (host ms / device ms): "
+        + "; ".join(f"{r['stage']} x {r['batch']} {r['ms']:.2f} / "
+                    f"{r['device_ms']:.2f}" for r in stages)
+        + f"; micro: " + "; ".join(f"{r['op']} {r['ms']:.3f} / "
+                                    f"{r['device_ms']:.3f}" for r in ops)
+        + f" [{smi}]")
+
+    # 24. GROUP_BUDGET 4096 and 16384 at C=512, a subprocess each
+    groups, _ = quiet(lambda: attrib.cmd_groups(attrib.parse(
+        ["groups", "--channels", "512", "--budgets", "4096,16384"])))
+    got_g = {b: next(x["config"]["group"] for x in recs if "config" in x)
+             for b, recs in groups}
+    assert got_g == {4096: 5, 16384: 25}, got_g
+    path_launches["bench_attrib_torch groups (subprocesses)"] = sum(
+        x["launches"] for _, recs in groups for x in recs if "launches" in x)
+    log("bench_attrib_torch groups C=512: " + "; ".join(
+        f"budget {b} g={got_g[b]}: " + ", ".join(
+            f"{x['variant']} {x['ms_per_dispatch']:.1f}" for x in recs
+            if "variant" in x) for b, recs in groups) + f" ms [{smi}]")
+
+    # 25. the streaming stage timer: Trigger per transport, MultiTrigger(8)
+    mf.launches = 0
+    singles, _ = quiet(lambda: bstream.single_main(0.5, 4, ["f32", "i16",
+                                                            "i8"], 3, dev))
+    multis, _ = quiet(lambda: bstream.multi_main(8, 0.5, 4, ["i16", "i4"], 3,
+                                                 dev))
+    path_launches["bench_stream_torch"] = mf.launches
+    assert all(r["detections_ok"] for r in singles + multis), \
+        (singles, multis)
+    log("bench_stream_torch 0.5 s, 4-half-frame chunks, best of 3 passes: "
+        + "; ".join(f"Trigger {r['transport']} {r['best_sps'] / 1e6:.3f} M "
+                    f"samples/s" for r in singles)
+        + "; " + "; ".join(f"MultiTrigger(8) {r['transport']} "
+                           f"{r['best_sps_per_stream'] / 1e6:.3f} M per "
+                           f"stream" for r in multis)
+        + f"; cell 123 found in every run [{smi}]")
+
+    # 26. the seam sweep on 4 gloo ranks sharing the card
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(examples / "seam_sweep_torch.py"), "--ranks",
+         "4", "--backend", "gloo", "--snr-min", "-30", "--snr-max", "0",
+         "--step", "30", "--trials", "2", "--device", "cuda"],
+        capture_output=True, text=True, timeout=420,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    assert done.returncode == 0, done.stderr[-3000:]
+    seam = json.loads(done.stdout.splitlines()[-1])
+    p = {r["snr_db"]: (r["p_continuous"], r["p_sharded"])
+         for r in seam["curve"]}
+    assert p == {-30.0: (0.0, 0.0), 0.0: (1.0, 1.0)}, seam
+    assert seam["n_shards"] == 4 and seam["launches"] > 0, seam
+    path_launches["seam_sweep_torch (rank 0 of 4)"] = seam["launches"]
+    log(f"seam_sweep_torch on 4 gloo ranks on one card: P(detect) "
+        f"continuous / sharded {p} over 2 trials, "
+        f"{time.perf_counter() - t0:.1f} s with start-up, "
+        f"{seam['launches']} kernel launches on rank 0 [{smi}]")
+
+    # 27. the SNR curve, two trials a point, 4 dB steps
+    mf.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        payload, _ = quiet(lambda: curvemod.main(
+            ["--trials", "2", "--step", "4", "--out-dir", tmp]))
+        written = sorted(x.name for x in pathlib.Path(tmp).iterdir())
+    assert written == ["SNR_CURVE_torch.md", "snr_curve_torch.json"], written
+    knees = dict(payload["knee_db"], **payload["pbch_limited"]["knee_db"])
+    assert len(knees) == 10 and None not in knees.values(), knees
+    path_launches["make_snr_curve_torch"] = mf.launches
+    log(f"make_snr_curve_torch --trials 2 --step 4: both files written, "
+        f"knees (dB) {knees}, {time.perf_counter() - t0:.1f} s, "
+        f"{mf.launches} kernel launches [{payload['device']}]")
+
+    # 28. the kernel at the shapes these tools add
+    for label, n_rows, seconds, g in (
+            ("grid C=256 g=10 (sweep)", 256, 0.55, 10),
+            ("grid C=512 g=5 (passes, budget 4096)", 512, 0.55, 5),
+            ("grid C=512 g=25 (budget 16384)", 512, 0.55, 25),
+            ("grid C=1024 g=1 (sweep, 0.275 s)", 1024, 0.275, 1)):
+        gen = torch.Generator(device=dev).manual_seed(n_rows + g)
+        length = trig.LOOKBACK + int(seconds * 1.92e6) + trig.WINDOW
+        buf = tuple(torch.randn((n_rows, length), generator=gen, device=dev)
+                    for _ in range(2))
+        case(label, buf, g * 75, torch.bfloat16,
+             lambda: mf.group_power(*buf, lo, g, torch.bfloat16),
+             lambda: mf.group_power_plain(*buf, lo, g, torch.bfloat16))
+        del buf
+        torch.cuda.empty_cache()
+
     big, _ = big_buffer(dev, synth, trig)       # the profiler's shapes
     small = tuple(c[:1].contiguous() for c in big)
     win = tuple(c[:8, lo:lo + correlate.V2_WINDOW].contiguous() for c in big)
 
-    # ---- 22. under the profiler: the small launches' host side, then each
+    # ---- 29. under the profiler: the small launches' host side, then each
     # launch's device kernels by name ----
     launch_shapes = ((f"grid C={C_BIG} g=25",
                       lambda dt: mf.group_power(*big, lo, 25, dt)),
@@ -1688,7 +1862,17 @@ def main() -> int:
         f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
         f"idle share {1 - busy / wall:.3f} [{smi}]")
 
-    # ---- 23. nothing of JAX ----
+    # the 128 x 100 dispatch on the device's side: busy time by kernel
+    parts = device_kernels(dispatch, reps=1)
+    busy = sum(parts.values())
+    log(f"scan_engine C={C_BIG} x {STEPS_BIG} under torch.profiler: "
+        f"{busy:.1f} ms of device time a dispatch against {ms_dispatch:.1f} "
+        f"ms of wall time in phase 5 (busy share {busy / ms_dispatch:.2f}); "
+        f"the largest: " + ", ".join(
+            f"{k[:40]} {v:.1f} ms" for k, v in
+            sorted(parts.items(), key=lambda kv: -kv[1])[:6]) + f" [{smi}]")
+
+    # ---- 30. nothing of JAX ----
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "ltetrigger_tpu")]
     assert not bad, f"imported {bad[:5]}"

@@ -59,7 +59,9 @@ LOOKBACK = PSS_SYMBOL_START             # 832 samples of history before grid0
 WINDOW = LOOKBACK + correlate.V2_WINDOW                # 10560
 K_CANDIDATES = 16                       # MIB candidate slots (long dispatches)
 K_STEP_CAP = 32                         # up to here: one capture slot a step
-GROUP_BUDGET = 4096                     # max batch*g steps per pass-A group
+# max batch*g steps per pass-A group (bounds the power tensor to about
+# GROUP_BUDGET * 115 KB); a larger budget gives pass B fewer, larger groups
+GROUP_BUDGET = int(os.environ.get("LTETRIGGER_GROUP_BUDGET", "4096"))
 SEG = 512                               # slot-0 tail gathered per step
 SEG_OFF = SLOT_LENGTH - SEG
 # pass C reads up to this far past the last grid step; the JAX engine pads
@@ -508,13 +510,19 @@ def _decode_candidates(state0: TriggerState, buffer: cplx.Pair,
 
 def _mib_postpass(state0: TriggerState, final: TriggerState,
                   raw: RawStepOutput, buffer: cplx.Pair, data_valid: int,
-                  k: int | None = None, combine: bool = True):
+                  k: int | None = None, combine: bool = True,
+                  do_extract: bool | None = None,
+                  do_decode: bool | None = None):
     """Pass C.  Returns (final_state, StepOutput stacked [n_steps, ...]).
 
     data_valid: logical end of DATA; a candidate whose slot-1 read would
     cross it is deferred (counted in cap_overflow), never read misaligned.
     k: MIB capture slots (default: one per step up to K_STEP_CAP, then
     K_CANDIDATES).
+    do_extract / do_decode: host bools that replace the gates `any step
+    emitted` / `any candidate captured` and their host reads ("emit",
+    "capture"); None keeps the gate.  The attribution tool times pass C with
+    and without the decode this way (examples/bench_attrib_torch.py).
     """
     s = raw.psr.shape[0]
     if k is None:
@@ -525,8 +533,10 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
     zero_i = torch.zeros(shape, dtype=torch.int32, device=dev)
     zero_b = torch.zeros(shape, dtype=torch.bool, device=dev)
 
-    host_syncs["emit"] += 1
-    if not bool(raw.emit.any()):        # nothing emitted
+    if do_extract is None:
+        host_syncs["emit"] += 1
+        do_extract = bool(raw.emit.any())
+    if not do_extract:                  # nothing emitted
         mean0 = _ring_mean(state0.cfo_ring, state0.cfo_count)
         mid_final = final
         track_event, lost_e = zero_b, zero_b
@@ -599,8 +609,10 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
         cand_freq = scatter(freq)
         valid = torch.arange(k, device=dev) < cnt[..., None]
 
-        host_syncs["capture"] += 1
-        if bool(cnt.sum() > 0):         # any candidate captured
+        if do_decode is None:
+            host_syncs["capture"] += 1
+            do_decode = bool(cnt.sum() > 0)
+        if do_decode:                   # any candidate captured
             (found, prb_rk, ports_rk, pext_rk, pres_rk, sfn_rk,
              acc_f, n_f, cell_f) = _decode_candidates(
                 state0, buffer, cand_start, cand_freq, cand_cell, cand_cp,

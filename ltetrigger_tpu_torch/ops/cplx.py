@@ -22,6 +22,12 @@ def from_numpy(x: np.ndarray, device="cpu") -> Pair:
             .to(device))
 
 
+def to_numpy(p: Pair) -> np.ndarray:
+    """Pair (on any device) -> numpy complex64 (host copy)."""
+    return p[0].detach().cpu().numpy().astype(np.complex64) \
+        + 1j * p[1].detach().cpu().numpy().astype(np.complex64)
+
+
 def const(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Static complex constant -> numpy float32 pair (for kernel weights)."""
     x = np.asarray(x)
@@ -48,6 +54,10 @@ def mul_conj(a: Pair, b: Pair) -> Pair:
 
 def conj(a: Pair) -> Pair:
     return (a[0], -a[1])
+
+
+def neg(a: Pair) -> Pair:
+    return (-a[0], -a[1])
 
 
 def scale(a: Pair, s) -> Pair:
@@ -80,6 +90,11 @@ def where(c, a: Pair, b: Pair) -> Pair:
     return (torch.where(c, a[0], b[0]), torch.where(c, a[1], b[1]))
 
 
+def sum(a: Pair, dim=None) -> Pair:  # noqa: A001
+    """Sum along `dim` (all elements when None)."""
+    return (torch.sum(a[0], dim=dim), torch.sum(a[1], dim=dim))
+
+
 def dot_conj_sum(a: Pair, b: Pair, dim=-1) -> Pair:
     """sum(a * conj(b)) along dim — the complex correlation inner product."""
     re = torch.sum(a[0] * b[0] + a[1] * b[1], dim=dim)
@@ -106,9 +121,23 @@ def index(a: Pair, idx) -> Pair:
     return (a[0][idx], a[1][idx])
 
 
+def take(a: Pair, idx, dim=-1) -> Pair:
+    """Elements `idx` (an integer tensor, any shape) along `dim`, as
+    `numpy.take` / `jnp.take` with an axis."""
+    idx = torch.as_tensor(idx, device=a[0].device)
+    return tuple(torch.index_select(c, dim, idx.reshape(-1)).reshape(
+        c.shape[:dim % c.ndim] + idx.shape + c.shape[dim % c.ndim + 1:])
+        for c in a)
+
+
 def stack(pairs, dim=0) -> Pair:
     return (torch.stack([p[0] for p in pairs], dim=dim),
             torch.stack([p[1] for p in pairs], dim=dim))
+
+
+def concat(pairs, dim=0) -> Pair:
+    return (torch.cat([p[0] for p in pairs], dim=dim),
+            torch.cat([p[1] for p in pairs], dim=dim))
 
 
 def reshape(a: Pair, shape) -> Pair:
