@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero:
   1. the card: torch version, device name, `nvidia-smi` name and power limit
      (exits non-zero without a CUDA device);
-  2. builds the CUDA kernels from ltetrigger_tpu_torch/csrc (timed) and
-     prints the compiler's register and spill report;
+  2. builds the CUDA kernels from ltetrigger_tpu_torch/csrc (one nvcc a
+     source, all at once; timed) and prints the compiler's register and
+     spill report;
   3. the matched-filter kernel against its plain PyTorch version on the card
      (grid entry at 1 and 128 channels x 25 steps, window entry at B=8; f32
      and bf16 inputs; CUDA-event times), each beside its bound and beside
@@ -15,9 +16,24 @@ Phases, in order; any failure exits non-zero:
      port never calls); a ramp stream, a buffer with N and lo unaligned and
      read past its end, row counts that are no multiple of the row tile;
      and bf16 against f32 decisions;
+ 3a. the pass-B kernel (csrc/pass_b.cu) against its plain version
+     (`scan_group_plain`) on the card: C=128 x 4 groups of 25 steps of
+     pass A's real power from fresh state; planted power (edge-bin peaks,
+     ties in different blocks, acquisition, loss, reacquisition, a partial
+     last group) at B = 8 / 1 / 8 / 16 and g=32; every row and state field
+     equal, the EMA bit for bit; CUDA-event times of the kernel and the
+     plain group beside the bound (the searched root-steps' power, the EMA
+     and ring in and out), at C=128 also the plain group captured once in a
+     CUDA graph and replayed (a measurement only, never a path);
+ 3b. the Viterbi kernel (csrc/viterbi.cu) against its plain version on
+     seeded codewords at sigma 0.3 / 0.8 / 1.5, B = 48 and 73728 (the
+     C=128 x 100 decode's count): bits equal except where the plain
+     version's two best final metrics lie within 1e-4 relative, metric
+     rtol 1e-5; the same times and bound;
   4. the main path: `search(device="cuda")` over 1 s of four synthetic cells
      at 1.92 / 7.68 / 15.36 / 30.72 Msps, then the CLI on a capture file,
-     with the kernel's launch count read around them;
+     with the three kernels' launch counts set to 0 before them and read
+     after (each must have launched);
   5. one scan_engine dispatch of 128 channels x 100 half-frame steps (about
      1 GB of stream on the card), detections checked in every channel, and a
      small dispatch checked field for field against the CPU run; then the
@@ -120,7 +136,11 @@ Phases, in order; any failure exits non-zero:
 
 Nothing of phases 1-21 was cut to make room for the later ones.
 
-The line before the last is the kernels' JSON record; the last line is
+Every path is driven with the three kernels' launch counts (matched filter
+"mf", pass B "pb", Viterbi "vit") set to 0 just before it and read just
+after; the paths that run in other processes (the example tools' groups and
+seam sweep) report the matched filter's count only.  The line before the
+last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -130,6 +150,7 @@ import io
 import json
 import math
 import pathlib
+import re
 import socket
 import subprocess
 import sys
@@ -144,6 +165,9 @@ TOL = dict(rtol=1e-4, atol=1e-5)      # float32 sums in another order
 # H100 SXM data sheet, dense: device memory, bf16 tensor cores, float32 on
 # the SM cores (the type of a float32 product, however the kernel gets there)
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# the float32 peak counts an FMA as two operations: an add, a product or a
+# compare alone is one instruction, so such work runs at most at half of it
+PEAK_F32_OP = PEAK_F32 / 2
 C_BIG, STEPS_BIG = 128, 100
 CELLS = ((123, 6, 1.92e6), (124, 25, 7.68e6), (125, 50, 15.36e6),
          (369, 100, 30.72e6))
@@ -157,6 +181,38 @@ CENTERS8 = [(k - 3.5) * 1.92e6 for k in range(8)]
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Counts(dict):
+    """Kernel launches by kernel: "mf" (matched filter), "pb" (pass B),
+    "vit" (Viterbi); counts add key by key."""
+
+    def __add__(self, other):
+        return Counts({k: self.get(k, 0) + other.get(k, 0)
+                       for k in (*self, *other)})
+
+    def __radd__(self, other):
+        return self if other == 0 else self + other
+
+    def __str__(self):
+        return " / ".join(f"{self.get(k, 0)} {k}" for k in KERNELS)
+
+
+KERNELS = ("mf", "pb", "vit")
+
+
+def kernel_modules() -> dict:
+    from ltetrigger_tpu_torch.ops.kernels import matched_filter, pass_b, viterbi
+    return {"mf": matched_filter, "pb": pass_b, "vit": viterbi}
+
+
+def reset_launches() -> None:
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_launches() -> Counts:
+    return Counts({k: m.launches for k, m in kernel_modules().items()})
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -195,6 +251,16 @@ def operand(buf, lo: int, m: int) -> torch.Tensor:
                       blocks[1][:, 1:]], dim=-1).reshape(-1, 512)
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name from its mangled one (every kernel of csrc/ is named
+    <prefix>_..._kernel), with a template's arguments up to their end."""
+    m = re.search(r"(?:mf|pb|vit)_\w*?kernel", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end():]
+    return m.group(0) + (rest.split("EE")[0] if rest[:1] == "I" else "")
+
+
 def enqueue_us(fn, reps: int = 100) -> float:
     """Mean host microseconds to enqueue one call of `fn` (no wait for the
     card inside the timed region)."""
@@ -223,6 +289,107 @@ def device_kernels(fn, reps: int = 5) -> dict:
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.key] = e.device_time_total / 1e3 / reps
+    return out
+
+EDGE_BINS = (0, 63, 64, 127, 128, 9535, 9598, 9599)
+
+
+def planted_power(dev, n: int, g: int, strong, seed: int) -> torch.Tensor:
+    """[n, g, 75, 3, 128] float32 pass-A power on the card: unit
+    exponential noise; where strong[t], roots 0 and 1 of each lane a peak
+    with a short lobe at an edge bin of their own (EDGE_BINS), root 2 two
+    equal maxima in different blocks, equal at every step (a tie that
+    lasts); silent steps carry noise only."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = -torch.log1p(-torch.rand((n, g, 3, 9600), generator=gen, device=dev))
+    on = torch.tensor(list(strong), device=dev)
+    for lane in range(n):
+        b1 = 1000 + 17 * lane
+        p[lane, :, 2, b1] = torch.where(on, 40.0, p[lane, :, 2, b1])
+        p[lane, :, 2, b1 + 128 * (3 + lane % 5)] = p[lane, :, 2, b1]
+        for r in (0, 1):
+            pk = EDGE_BINS[(3 * lane + r) % len(EDGE_BINS)]
+            for d in range(4):
+                for b in {pk - d, pk + d} & set(range(9600)):
+                    p[lane, :, r, b] = torch.where(on, 60.0 * 0.6 ** d,
+                                                   p[lane, :, r, b])
+    return p.reshape(n, g, 3, 75, 128).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def searched(state0, rows, n_active: int, track_every: int) -> int:
+    """How many (lane, root, step) of a group ran the search (read their
+    power and walked the peak): the timer replayed from the rows."""
+    trk = state0.tracking.cpu().numpy()
+    timer = state0.timer.cpu().numpy()
+    tracking, lost = rows[3].cpu().numpy(), rows[5].cpu().numpy()
+    n = 0
+    for t in range(n_active):
+        s = ~trk | (timer == 0)
+        n += int(s.sum())
+        timer = np.where(lost[t], 0, np.where(s, track_every, timer - 1))
+        trk = tracking[t]
+    return n
+
+
+def roofline(ops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of float32 operations at one an
+    instruction and bytes over the memory rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OP
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pass_b_bound(lanes: int, g: int, n_search: int) -> tuple[float, str]:
+    """Least milliseconds for one group: the searched steps' power read
+    once, the EMA and PSR ring read and written once, the rows written once,
+    over the memory rate; ~6 float32 operations a searched bin (two
+    products, a sum, the argmax, the lobe test, the side max), none of them
+    an FMA, over the float32 rate of one operation an instruction."""
+    nbytes = 4 * n_search * 9600 + 2 * 4 * lanes * 3 * (9600 + 200) \
+        + 19 * g * lanes * 3
+    return roofline(6 * n_search * 9600, nbytes)
+
+
+def viterbi_bound(b: int) -> tuple[float, str]:
+    """Least milliseconds for b codewords: the float32 operations the
+    decode needs over the float32 rate of one operation an instruction
+    (adds and compares, no FMA), against the LLRs read and the bits and
+    metric written once over the memory rate.  A radix-4 step needs the
+    distinct branch metrics once (each stage's four +-r0 +- r1 +- r2 up to
+    sign, 6 adds a stage, then one add for each two-stage sum the tables
+    use up to sign), then 256 candidate adds and 3 compares a state; the
+    end takes 63 compares and a division."""
+    return roofline(b * (60 * (vit_branch_ops() + 256 + 64 * 3) + 64),
+                    b * (480 + 160 + 4))
+
+
+def vit_branch_ops() -> int:
+    """Adds a radix-4 step spends on its distinct branch metrics: 6 for
+    each stage's four sums up to sign, and one for each two-stage sum up
+    to sign that the tables of ops/viterbi use."""
+    from ltetrigger_tpu_torch.ops import viterbi
+    ob2, _ = viterbi._radix4_tables()
+    signs = {tuple(int(v) for v in row) for row in ob2.reshape(-1, 6)}
+    return 12 + len({max(x, tuple(-v for v in x)) for x in signs})
+
+
+def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
+    """[B] bool: the plain decoder's two best final path metrics differ by
+    at most `rel` of the best's magnitude, where two correct decoders may
+    keep different paths."""
+    from ltetrigger_tpu_torch.ops import viterbi
+    top = viterbi.final_metrics(llr)[0].topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1] <= rel * top[:, 0].abs().clamp(min=1.0)
+
+
+def conv_encode_batch(bits: np.ndarray, polys) -> np.ndarray:
+    """Tail-biting K=7 rate-1/3 encode of [B, 40] bits -> [B, 3, 40] (the
+    register convention of ltecore.coding.conv_encode, vectorised)."""
+    out = np.zeros((bits.shape[0], 3, bits.shape[1]), np.uint8)
+    for j, g in enumerate(polys):
+        for d in range(7):
+            if (g >> (6 - d)) & 1:
+                out[:, j] ^= np.roll(bits, d, axis=1).astype(np.uint8)
     return out
 
 
@@ -424,7 +591,6 @@ def rank_main(args) -> int:
     from ltetrigger_tpu_torch.models import trigger as trig
     from ltetrigger_tpu_torch.models.multi import MultiTrigger
     from ltetrigger_tpu_torch.models.wideband import WidebandTrigger
-    from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
     from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
                                                init_distributed, make_mesh,
                                                time_sharded_scan)
@@ -453,11 +619,11 @@ def rank_main(args) -> int:
             for _ in range(3):
                 barrier(ch)
                 t0 = time.perf_counter()
-                mf.launches = 0
+                reset_launches()
                 _, got = channel_scan(big, STEPS_BIG, 4.0, mesh=ch)
                 torch.cuda.synchronize()
                 t_call.append(1e3 * (time.perf_counter() - t0))
-                res["scan_launches"] = mf.launches
+                res["scan_launches"] = read_launches()
                 barrier(ch)
                 t0 = time.perf_counter()
                 trig.scan_engine(local, trig.init_state(batch=(hi - lo,),
@@ -487,19 +653,19 @@ def rank_main(args) -> int:
             time_sharded_scan(pair_np(cell[:world * 19200]), tm, 4.0)
             barrier(tm)
             t0 = time.perf_counter()
-            mf.launches = 0
+            reset_launches()
             got = time_sharded_scan(pair_np(cell), tm, 4.0)
             torch.cuda.synchronize()
             res["shards_ms"] = 1e3 * (time.perf_counter() - t0)
-            res["shards_launches"] = mf.launches
+            res["shards_launches"] = read_launches()
             ev = got.track_event.cpu().numpy()      # [t, steps, R]
             assert ev.shape == (world, 2 * per, 3), ev.shape
             assert ev.any(axis=(1, 2)).all(), ev.any(axis=(1, 2))
             assert set(got.cell_id.cpu().numpy()[ev].tolist()) == {125}
             seam = straddle_stream(synth, world, per)
-            mf.launches = 0
+            reset_launches()
             got = time_sharded_scan(pair_np(seam), tm, 4.0)
-            res["shards_launches"] += mf.launches
+            res["shards_launches"] += read_launches()
             host = trig.unpack_output(trig.pack_output(got))
             assert host.track_event.any(axis=(1, 2)).all()
             for shard in range(world - 1):  # the step that crosses the seam
@@ -533,12 +699,12 @@ def rank_main(args) -> int:
                 t = make()
                 barrier(ch)
                 t0 = time.perf_counter()
-                mf.launches = 0
+                reset_launches()
                 got = feed(t, None)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 return t, got, {
-                    "wall_s": wall, "launches": mf.launches,
+                    "wall_s": wall, "launches": read_launches(),
                     "dispatches": t.timer.summary()["scan"]["count"],
                     "in_flight": t.max_in_flight, "rows": t.n,
                     "stages": {k: [v["mean_ms"], v["count"]]
@@ -636,6 +802,13 @@ def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
     output), a detection in every channel, and the times.  returns what
     each rank measured."""
     ranks = run_ranks(world, out, backend, plan)
+    for r in ranks:
+        for key in ("scan_launches", "shards_launches"):
+            if key in r:
+                r[key] = Counts(r[key])
+        for key in ("multi", "wide"):
+            if key in r:
+                r[key]["launches"] = Counts(r[key]["launches"])
     got = trig.unpack_output(np.load(out / f"scan_ch{world}.npy"))
     ref = trig.unpack_output(want)
     for f in trig.StepOutput._fields:
@@ -650,7 +823,8 @@ def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
     call = max(min(r["scan_call_ms"]) for r in ranks)
     engine = max(min(r["scan_engine_ms"]) for r in ranks)
     full = max(min(r["scan_full_ms"]) for r in ranks)
-    assert all(r["scan_launches"] > 0 for r in ranks)
+    assert all(all(r["scan_launches"].values()) for r in ranks), \
+        [r["scan_launches"] for r in ranks]
     log(f"channel_scan 128 x 100 over ch = {world} ({ranks[0]['backend']}, "
         f"{'one card' if backend == 'gloo' else 'a card a rank'}): gathered "
         f"output = one process's field for field, detections in all "
@@ -681,14 +855,14 @@ def shards_line(ranks, smi: str) -> None:
         + f"; {ranks[0]['shards_launches']} kernel launches a rank [{smi}]")
 
 
-def cards_phase(out, want, cells_big, one_ms, smi, trig) -> int:
+def cards_phase(out, want, cells_big, one_ms, smi, trig) -> Counts:
     """Phase 21 (`out` holds sigs.npy and band8.npy).  returns the kernel
-    launches of all ranks (0 when the phase did not start)."""
+    launches of all ranks (empty when the phase did not start)."""
     n = torch.cuda.device_count()
     if n < 2:
         log(f"one rank per card over NCCL: not started, this machine has "
             f"{n} card; this run says nothing of NCCL between cards")
-        return 0
+        return Counts()
     world = 4 if n >= 4 else 2
     ranks = scan_on_ranks(world, out, "nccl", "scan,shards,stream", want,
                           cells_big, one_ms, smi, trig)
@@ -737,8 +911,11 @@ def main() -> int:
     from ltetrigger_tpu_torch.models.multi import MultiTrigger
     from ltetrigger_tpu_torch.models.wideband import WidebandTrigger
     from ltetrigger_tpu_torch.ops import channelize as chan
-    from ltetrigger_tpu_torch.ops import correlate, cplx
+    from ltetrigger_tpu_torch.ops import correlate, cplx, viterbi
+    from ltetrigger_tpu_torch.ops.kernels import build as kbuild
     from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
+    from ltetrigger_tpu_torch.ops.kernels import pass_b as pb
+    from ltetrigger_tpu_torch.ops.kernels import viterbi as vk
     from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
                                                init_distributed, make_mesh,
                                                time_sharded_scan)
@@ -746,22 +923,22 @@ def main() -> int:
     import torch.distributed as dist
 
     # ---- 2. build ----
-    path, build_s = mf.build()
-    log(f"build: {path.name} in {build_s:.2f} s")
+    path, build_s = kbuild.build()
+    log(f"build: {path.name} from "
+        f"{', '.join(x.name for x in sorted(kbuild.CSRC.glob('*.cu')))} in "
+        f"{build_s:.2f} s (one nvcc a source, all at once)")
     report = path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(report):
         if "Compiling entry function" in line:      # then: properties, spills
-            kname = line.split("'")[1]              # and registers
-            kname = kname[kname.find("mf_"):].split("EE")[0]
-            log(f"  {kname}: " + "; ".join(
+            log(f"  {kernel_label(line.split(chr(39))[1])}: " + "; ".join(
                 x.replace("ptxas info    :", "").strip()
-                for x in report[i + 2:i + 4]))
+                for x in report[i + 2:i + 4]))      # and registers
 
     if only_cards:      # phases 1, 2 and 21 alone
         big, cells_big = big_buffer(dev, synth, trig)
         want, one_ms = one_process_scan(big, channel_scan, trig)
         del big
-        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
             np.save(f"{tmp}/sigs.npy", np.stack(
                 [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
                  for i, (cid, prb) in enumerate(CELLS8)]))
@@ -769,10 +946,11 @@ def main() -> int:
             n = cards_phase(pathlib.Path(tmp), want, cells_big, one_ms, smi,
                             trig)
         log(smi)
-        print(json.dumps({"ok": n > 0, "device": {
+        ok = bool(n) and all(n.values())
+        print(json.dumps({"ok": ok, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
-        return 0 if n > 0 else 1
+        return 0 if ok else 1
 
     # ---- 3. kernel against plain version ----
     big, cells_big = big_buffer(dev, synth, trig)
@@ -852,15 +1030,143 @@ def main() -> int:
     log(f"bf16 vs f32: {int(hit.sum())} detected roots, identical peaks, "
         f"PSR within rtol 5e-3")
 
+    # ---- 3a. the pass-B kernel against its plain version ----
+    pb_rows, pb_worst = {}, 0.0
+
+    def pass_b_case(label, state0, powers, n_acts, grid0, ta, te,
+                    graph=False):
+        """Kernel and plain version over consecutive groups from state0:
+        every row and state field equal, the EMA bit for bit; the first
+        group timed beside its bound (and, with `graph`, the plain group
+        captured once in a CUDA graph and replayed)."""
+        nonlocal pb_worst
+        st_k = st_p = state0
+        grid, acquired, lost = grid0, False, False
+        for power, n_act in zip(powers, n_acts):
+            st_k, rk = pb.scan_group_kernel(st_k, power, grid, n_act, 4.0,
+                                            ta, te)
+            st_p, rp = pb.scan_group_plain(st_p, power, grid, n_act, 4.0,
+                                           ta, te)
+            torch.cuda.synchronize()
+            for f, x, y in zip(("peak", "psr", "score", "tracking", "emit",
+                                "lost", "consumed"), rk, rp):
+                assert x.dtype == y.dtype and torch.equal(x, y), (label, f)
+            for f in trig.TriggerState._fields:
+                assert torch.equal(getattr(st_k, f), getattr(st_p, f)), \
+                    (label, f)
+            if grid == grid0:
+                n_search = searched(state0, rp, n_act, te)
+            acquired |= bool(rk[3].any())
+            lost |= bool(rk[5].any())
+            grid += n_act * 9600
+        pb_worst = max(pb_worst, (st_k.ema - st_p.ema).abs().max().item())
+
+        def kern():
+            return pb.scan_group_kernel(state0, powers[0], grid0, n_acts[0],
+                                        4.0, ta, te)
+
+        def plain():
+            return pb.scan_group_plain(state0, powers[0], grid0, n_acts[0],
+                                       4.0, ta, te)
+        ms, pms = cuda_ms(kern), cuda_ms(plain, iters=3)
+        gms = None
+        if graph:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    plain()
+            torch.cuda.current_stream().wait_stream(side)
+            cg = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(cg):
+                plain()
+            gms = cuda_ms(cg.replay)
+            del cg
+        lanes = state0.score.numel() // 3
+        bms, by = pass_b_bound(lanes, powers[0].shape[-4], n_search)
+        pb_rows[label] = dict(shape=label, ms=ms, plain_ms=pms, graph_ms=gms,
+                              bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                              searched=n_search)
+        log(f"pass B {label}: kernel = plain version over {len(powers)} "
+            f"groups (rows and state exact, EMA bit for bit; acquired "
+            f"{acquired}, lost {lost}); group 0: kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms"
+            + (f", plain captured in a CUDA graph {gms:.4f} ms"
+               if gms is not None else "")
+            + f", bound {bms:.4f} ms ({by}, {n_search} searched root-steps "
+            f"of {lanes * 3 * n_acts[0]}) [{smi}]")
+        return acquired, lost
+
+    # C=128, g=25: pass A's real power over the 128 x 100 dispatch's groups
+    power128 = [mf.group_power(*big, lo + 25 * 9600 * i, 25, torch.bfloat16)
+                for i in range(4)]
+    pass_b_case(f"C={C_BIG} g=25 (real power)",
+                trig.init_state(batch=(C_BIG,), device=dev), power128,
+                [25] * 4, lo, trig.DEFAULT_TRACK_AFTER,
+                trig.DEFAULT_TRACK_EVERY, graph=True)
+    del power128
+    # planted power: ties, edge peaks; acquisition, loss, reacquisition
+    # (track_after 4, track_every 3), the last group partial
+    for n_rows, g, n_last in ((8, 32, 20), (1, 32, 32), (8, 32, 32),
+                              (16, 32, 11)):
+        strong = [t < 12 or t >= 40 for t in range(3 * g)]
+        powers = [planted_power(dev, n_rows, g, strong[i * g:(i + 1) * g],
+                                seed=i) for i in range(3)]
+        acq, lost = pass_b_case(
+            f"B={n_rows} g={g} (planted; last group n_active={n_last})",
+            trig.init_state(batch=(n_rows,), device=dev), powers,
+            [g, g, n_last], lo, 4, 3)
+        assert acq and lost, (n_rows, acq, lost)
+        del powers
+
+    # ---- 3b. the Viterbi kernel against its plain version ----
+    from ltetrigger_tpu_torch.ltecore import coding
+    vit_rows, vit_worst = {}, 0.0
+    check = np.random.default_rng(1).integers(0, 2, size=(8, 40))
+    assert (conv_encode_batch(check, coding.CONV_POLYS)
+            == np.stack([coding.conv_encode(b) for b in check])).all()
+    for b in (48, 73728):
+        for sigma in (0.3, 0.8, 1.5):
+            rng = np.random.default_rng(int(b + 10 * sigma))
+            sent = rng.integers(0, 2, size=(b, 40))
+            coded = conv_encode_batch(sent, coding.CONV_POLYS)
+            llr = (1.0 - 2.0 * coded.transpose(0, 2, 1)) \
+                + sigma * rng.normal(size=(b, 40, 3))
+            x = torch.from_numpy(llr.astype(np.float32)).to(dev)
+            kb, km = vk.viterbi_decode_wa_kernel(x)
+            pbits, pm = viterbi.viterbi_decode_wa(x)
+            torch.cuda.synchronize()
+            differ = (kb != pbits).any(dim=1)
+            tie = near_tie(x)
+            assert not (differ & ~tie).any(), \
+                (b, sigma, int((differ & ~tie).sum()))
+            torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+            err = (km - pm).abs().max().item()
+            vit_worst = max(vit_worst, err)
+            ok = (kb.cpu().numpy() == sent).all(axis=1).mean()
+            ms = cuda_ms(lambda: vk.viterbi_decode_wa_kernel(x))
+            pms = cuda_ms(lambda: viterbi.viterbi_decode_wa(x), iters=3)
+            bms, by = viterbi_bound(b)
+            vit_rows[(b, sigma)] = dict(
+                shape=f"B={b} sigma={sigma}", ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, max_abs_err=err,
+                bits_differ=int(differ.sum()), near_ties=int(tie.sum()))
+            log(f"Viterbi B={b} sigma={sigma}: kernel = plain version "
+                f"({int(differ.sum())} codewords differ, all near-ties; "
+                f"{int(tie.sum())} near-ties), metric max_abs_err {err:.3e}, "
+                f"{ok:.3f} of the blocks decoded; kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
+            del x, kb, km, pbits, pm
+
     # ---- 4. the main path: search over four rates, then the CLI ----
     captures = []
     for cid, prb, rate in CELLS:
         frame = synth.synthesize_frame(cid, nof_prb_field=prb)
         captures.append(upsample(frame, int(rate // 1.92e6)))
-    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         cap_path = f"{tmp}/cell125_15.36M.c64"
         captures[2].tofile(cap_path)
-        mf.launches = 0
+        reset_launches()
         for (cid, prb, rate), iq in zip(CELLS, captures):
             t0 = time.perf_counter()
             n0 = mf.launches
@@ -880,13 +1186,15 @@ def main() -> int:
         with contextlib.redirect_stdout(out):
             rc = cli.main([cap_path, "-s", "15.36M", "--repeat",
                            "--time-out", "1"])
-        launches = mf.launches
+        launches = read_launches()
         assert rc == 0 and '"status": "FOUND"' in out.getvalue(), \
             out.getvalue()
         assert json.loads(out.getvalue().split("done.")[1])["cell_id"] == 125
-    assert launches > 0, "the main path never launched the kernel"
+    assert all(launches.values()), f"a kernel of the main path never " \
+        f"launched: {launches}"
     path_launches = {"search and CLI": launches}
-    log(f"CLI printed FOUND; main path launched the kernel {launches} times")
+    log(f"CLI printed FOUND; the main path launched the kernels {launches} "
+        f"times")
 
     # ---- 5. one dispatch of 128 channels x 100 steps ----
     def dispatch():
@@ -894,10 +1202,10 @@ def main() -> int:
                                                      device=dev),
                                 STEPS_BIG, 4.0)
 
-    n0 = mf.launches
+    reset_launches()
     st, out = dispatch()                  # warm-up (allocator, caches)
     torch.cuda.synchronize()
-    per_dispatch = mf.launches - n0
+    per_dispatch = read_launches()
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -923,7 +1231,8 @@ def main() -> int:
     # a small dispatch, card against the CPU run (plain versions)
     sig = (big[0][:1, :12 * 9600 + 2000].cpu(), big[1][:1, :12 * 9600
                                                      + 2000].cpu())
-    _, ref = trig.scan_engine(sig, trig.init_state(batch=(1,)), 12, 4.0)
+    _, ref = trig.scan_engine(sig, trig.init_state(batch=(1,), device="cpu"),
+                             12, 4.0)
     _, got = trig.scan_engine(tuple(c.to(dev) for c in sig),
                               trig.init_state(batch=(1,), device=dev),
                               12, 4.0)
@@ -961,11 +1270,11 @@ def main() -> int:
     # ---- 6. the streaming Trigger ----
     def counted(run):
         """run() with the launch and host-sync counts set to 0 before it:
-        (result, kernel launches, host syncs by name)."""
-        mf.launches = 0
+        (result, kernel launches by kernel, host syncs by name)."""
+        reset_launches()
         trig.host_syncs.clear()
         res = run()
-        return res, mf.launches, dict(trig.host_syncs)
+        return res, read_launches(), dict(trig.host_syncs)
 
     def dispatches(t) -> int:
         return t.timer.summary().get("scan", {}).get("count", 0)
@@ -973,20 +1282,22 @@ def main() -> int:
     sig = stream_cell(synth, 125, 50, 2.0, seed=11)
     feed(api.Trigger(psr_threshold=4, device="cuda"), sig[:20 * 19200])
     events = {}
-    path_launches["Trigger"] = 0
+    path_launches["Trigger"] = Counts()
     for transport in ("f32", "i16", "i8"):
         t = api.Trigger(psr_threshold=4, transport=transport, device="cuda")
         (got, wall), n_launch, syncs = counted(lambda: feed(t, sig))
         n_disp = dispatches(t)
-        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        assert n_launch["mf"] == n_launch["pb"] == n_disp > 0 \
+            and n_launch["vit"] > 0, (n_launch, n_disp)
         assert got and t.tracking[125 % 3], transport
         events[transport] = got
         path_launches["Trigger"] += n_launch
         log(f"Trigger {transport}: {sig.size / wall / 1e6:.3f} M samples/s "
             f"of wall time ({sig.size} samples in {wall * 1e3:.1f} ms), "
-            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
-            f"and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
-                                for k, v in sorted(syncs.items()))
+            f"{n_disp} dispatches, kernel launches a dispatch "
+            + " / ".join(f"{n_launch[k] / n_disp:.2f} {k}" for k in KERNELS)
+            + " and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
+                                  for k, v in sorted(syncs.items()))
             + f" host syncs a dispatch, at most {t.max_in_flight} "
             f"dispatch(es) in flight; stages (mean ms x count): "
             + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
@@ -1014,12 +1325,13 @@ def main() -> int:
     (got_deep, wall), n_launch, syncs = counted(
         lambda: feed(t_deep, sig, chunk=32 * 9600))
     assert fields(got_deep) == fields(events["f32"])
-    assert n_launch == dispatches(t_deep)
+    assert n_launch["mf"] == n_launch["pb"] == dispatches(t_deep)
     path_launches["Trigger"] += n_launch
     log(f"Trigger f32 fed 307200-sample chunks: "
         f"{sig.size / wall / 1e6:.3f} M samples/s of wall time, "
-        f"{n_launch} dispatches of 1 kernel launch, "
-        f"{sum(syncs.values()) / n_launch:.2f} host syncs a dispatch, at "
+        f"{n_launch['mf']} dispatches of 1 matched-filter and 1 pass-B "
+        f"launch ({n_launch}), "
+        f"{sum(syncs.values()) / n_launch['mf']:.2f} host syncs a dispatch, at "
         f"most {t_deep.max_in_flight} in flight; stages (mean ms x count): "
         + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
                     for k, v in t_deep.timer.summary().items())
@@ -1103,7 +1415,7 @@ def main() -> int:
         singles.append(fields(got))
     assert [s[0]["cell_id"] for s in singles] == [c for c, _ in cells8], \
         singles
-    path_launches["MultiTrigger"] = 0
+    path_launches["MultiTrigger"] = Counts()
     for transport in ("i16", "i4"):
         m = MultiTrigger(8, psr_threshold=4, transport=transport,
                          device="cuda")
@@ -1127,7 +1439,8 @@ def main() -> int:
 
         (got, wall), n_launch, syncs = counted(drive)
         n_disp = dispatches(m)
-        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        assert n_launch["mf"] == n_launch["pb"] == n_disp > 0 \
+            and n_launch["vit"] > 0, (n_launch, n_disp)
         path_launches["MultiTrigger"] += n_launch
         if transport == "i16":
             events7, sps7 = tagged(got), sigs[0].size / wall
@@ -1144,8 +1457,9 @@ def main() -> int:
         log(f"MultiTrigger(8) {transport}: "
             f"{sigs[0].size / wall / 1e6:.3f} M samples/s per stream of wall "
             f"time ({8 * sigs[0].size / wall / 1e6:.3f} M in all), "
-            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
-            f"a dispatch, at most {m.max_in_flight} in flight; per-stream "
+            f"{n_disp} dispatches, kernel launches a dispatch "
+            + " / ".join(f"{n_launch[k] / n_disp:.2f} {k}" for k in KERNELS)
+            + f", at most {m.max_in_flight} in flight; per-stream "
             f"events equal 8 single Triggers'"
             + ("; stream 7 ended at 1 s and was continued with fill_gap, "
                "the group kept flowing" if transport == "i4" else "")
@@ -1160,7 +1474,7 @@ def main() -> int:
     found, n_launch, _ = counted(lambda: api.search(
         off, 1.92e6, max_seconds=0.5, cfo_search_range=2, device="cuda"))
     assert found and found[0].cell_id == 200 and found[0].nof_prb == 50, found
-    assert n_launch >= 10, n_launch
+    assert n_launch["mf"] >= 10, n_launch
     log(f"search(cfo_search_range=2) finds cell 200 at +1.5 subcarriers, "
         f"plain search does not; {n_launch} kernel launches (9 probe bins "
         f"+ the scan)")
@@ -1170,7 +1484,7 @@ def main() -> int:
     probes = syncs.get("probe", 0)
     assert got and got[0].cell_id == 200 and t._cfo_bins[0] == 3, \
         (got, t._cfo_bins)
-    assert probes > 0 and n_launch == dispatches(t) + 9 * probes, \
+    assert probes > 0 and n_launch["mf"] == dispatches(t) + 9 * probes, \
         (n_launch, dispatches(t), probes)
     path_launches["CFO probe"] += n_launch
     log(f"Trigger(cfo_search_range=2) acquires it at bin "
@@ -1197,7 +1511,7 @@ def main() -> int:
     after, _ = feed(whole, two[cut:])
     first = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
     feed(first, two[:cut])
-    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         first.save_state(f"{tmp}/ckpt.npz")
         second = api.Trigger(psr_threshold=4, transport="f32", device="cuda")
         second.load_state(f"{tmp}/ckpt.npz")
@@ -1244,7 +1558,7 @@ def main() -> int:
         recs
     for k, (cid, prb) in planted.items():
         assert (recs[k]["cell_id"], recs[k]["nof_prb"]) == (cid, prb), recs[k]
-    assert n_launch > 0
+    assert all(n_launch.values()), n_launch
     path_launches["wideband_scan, snr_sweep, pbch_sweep"] = n_launch
     log(f"wideband_scan 0.25 s x 16 centres: exactly the planted cells "
         f"{ {k: recs[k]['cell_id'] for k in planted} } detected, "
@@ -1259,14 +1573,15 @@ def main() -> int:
     feed_wide(WidebandTrigger(rate8, centers8, psr_threshold=4,
                               device="cuda"), band8[:20 * wchunk], wchunk)
     wide_events, wide_trigs = {}, {}
-    path_launches["WidebandTrigger"] = 0
+    path_launches["WidebandTrigger"] = Counts()
     for transport in ("f32", "i8", "i4"):
         w = WidebandTrigger(rate8, centers8, psr_threshold=4,
                             transport=transport, device="cuda")
         (got, wall), n_launch, syncs = counted(
             lambda: feed_wide(w, band8, wchunk))
         n_disp = dispatches(w)
-        assert n_launch == n_disp > 0, (n_launch, n_disp)
+        assert n_launch["mf"] == n_launch["pb"] == n_disp > 0 \
+            and n_launch["vit"] > 0, (n_launch, n_disp)
         assert sorted((n, f["cell_id"]) for n, f in got) \
             == list(enumerate(ids8)), (transport, got)
         assert int(w.backlog.max()) <= 9600, w.backlog
@@ -1277,9 +1592,10 @@ def main() -> int:
         log(f"WidebandTrigger(8 x 15.36 Msps) {transport}: "
             f"{n_narrow / wall / 1e6:.3f} M narrow samples/s per carrier of "
             f"wall time ({band8.size / wall / 1e6:.3f} M wide samples/s), "
-            f"{n_disp} dispatches, {n_launch / n_disp:.2f} kernel launches "
-            f"and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
-                                for k, v in sorted(syncs.items()))
+            f"{n_disp} dispatches, kernel launches a dispatch "
+            + " / ".join(f"{n_launch[k] / n_disp:.2f} {k}" for k in KERNELS)
+            + " and " + ", ".join(f"{v / n_disp:.2f} '{k}'"
+                                  for k, v in sorted(syncs.items()))
             + f" host syncs a dispatch, at most {w.max_in_flight} in "
             f"flight; all 8 cells found; stages (mean ms x count): "
             + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
@@ -1353,14 +1669,16 @@ def main() -> int:
     (got, wall), n_launch, syncs = counted(
         lambda: feed_wide(w, band, 19200 * 16))
     n_disp = dispatches(w)
-    assert n_launch == n_disp > 0, (n_launch, n_disp)
+    assert n_launch["mf"] == n_launch["pb"] == n_disp > 0 \
+        and n_launch["vit"] > 0, (n_launch, n_disp)
     assert sorted((n, f["cell_id"]) for n, f in got) \
         == list(enumerate(ids16)), got
     path_launches["WidebandTrigger"] += n_launch
     log(f"WidebandTrigger(16 x 30.72 Msps) i8: "
         f"{band.size / 16 / wall / 1e6:.3f} M narrow samples/s per carrier "
         f"of wall time ({band.size / wall / 1e6:.3f} M wide samples/s), "
-        f"{n_disp} dispatches of 1 kernel launch, at most "
+        f"{n_disp} dispatches of 1 matched-filter and 1 pass-B launch "
+        f"({n_launch}), at most "
         f"{w.max_in_flight} in flight; all 16 cells found; stages (mean ms "
         f"x count): "
         + ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
@@ -1383,7 +1701,7 @@ def main() -> int:
     after, _ = feed_wide(whole, late[cut:], wchunk)
     first = wb()
     first.process_wide(late[:cut])
-    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         first.save_state(f"{tmp}/wide.npz")
         second = wb()
         second.load_state(f"{tmp}/wide.npz")
@@ -1434,7 +1752,7 @@ def main() -> int:
         device="cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    assert len(curve) == 21 and n_launch > 0
+    assert len(curve) == 21 and all(n_launch.values()), n_launch
     for rec in curve:
         if rec["snr_db"] >= 0:
             assert rec["prob"] == 1.0 and rec["cell_id"] == 77, rec
@@ -1467,8 +1785,8 @@ def main() -> int:
         import yaml
         from ltetrigger_tpu_torch.apps import run_flowgraph as flow
         examples = pathlib.Path(__file__).resolve().parent / "examples"
-        path_launches["run_flowgraph"] = 0
-        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        path_launches["run_flowgraph"] = Counts()
+        with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
             synth.synthesize_frame(123, nof_prb_field=6) \
                 .astype(np.complex64).tofile(f"{tmp}/cell123.c64")
             for demo in ("ltetrigger_demo_torch.grc",
@@ -1484,7 +1802,7 @@ def main() -> int:
                 cells = out["cellstore_0"]
                 assert cells and cells[0]["cell_id"] == 123 \
                     and cells[0]["nof_prb"] == 6, out
-                assert n_launch > 0
+                assert all(n_launch.values()), n_launch
                 path_launches["run_flowgraph"] += n_launch
                 log(f"run_flowgraph {demo}: cell 123 in the flowgraph's "
                     f"cell store, {n_launch} kernel launches")
@@ -1561,7 +1879,7 @@ def main() -> int:
         after_ref = tagged(feed_all(whole, late8, cut))
         first = MultiTrigger(8, psr_threshold=4, transport="f32", mesh=mesh1)
         before = tagged(feed_all(first, late8, 0, cut))
-        with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
             first.save_state(f"{tmp}/mesh.npz")
             second = MultiTrigger(8, psr_threshold=4, transport="f32",
                                   device="cuda")
@@ -1603,7 +1921,7 @@ def main() -> int:
         f"3; phase 5's scan_engine: {ms_dispatch:.1f} ms) [{smi}]")
     big = small = win = None            # room for the ranks' own buffers
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         tmp = pathlib.Path(tmp)
         np.save(tmp / "sigs.npy", np.stack(sigs))
         np.save(tmp / "band8.npy", band8)
@@ -1653,11 +1971,11 @@ def main() -> int:
             "ch2": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks2],
                     "full_ms": [min(r["scan_full_ms"]) for r in ranks2],
                     "call_ms": [min(r["scan_call_ms"]) for r in ranks2],
-                    "launches": [r["scan_launches"] for r in ranks2]},
+                    "launches": [r["scan_launches"]["mf"] for r in ranks2]},
             "ch4": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks4],
                     "full_ms": [min(r["scan_full_ms"]) for r in ranks4],
                     "call_ms": [min(r["scan_call_ms"]) for r in ranks4],
-                    "launches": [r["scan_launches"] for r in ranks4]}}
+                    "launches": [r["scan_launches"]["mf"] for r in ranks4]}}
         n_cards = cards_phase(tmp, want, cells_big, one_ms, smi, trig)
         if n_cards:
             path_launches["a card a rank (NCCL, all ranks)"] = n_cards
@@ -1683,23 +2001,24 @@ def main() -> int:
 
     # 22. the channel-count sweep
     sweep_recs = []
-    mf.launches = 0
+    reset_launches()
     for c in (32, 256, 1024):
         sec, steps = bsweep.capped(c, 0.55, 100)
         sweep_recs.append(quiet(lambda: bsweep.run_point(
             c, steps, sec, 3, "cuda"))[0])
-    path_launches["bench_sweep_torch"] = mf.launches
+    path_launches["bench_sweep_torch"] = read_launches()
     assert all(r["detections_ok"] for r in sweep_recs), sweep_recs
     log("bench_sweep_torch (channel_scan, best of 3): " + "; ".join(
         f"C={r['channels']} x {r['n_steps']} steps {r['ms_per_dispatch']:.1f}"
         f" ms, {r['msps']:.1f} M samples/s (first call "
         f"{r['compile_s']:.2f} s)" for r in sweep_recs)
-        + f"; cell 123 found at every point; {mf.launches} kernel launches "
+        + f"; cell 123 found at every point; {read_launches()} kernel "
+        f"launches "
         f"[{smi}]")
 
     # 23. the pass ladder at C=128 and 512, pass C's stages at C=128
     ladder = {}
-    mf.launches = 0
+    reset_launches()
     for c in (C_BIG, 512):
         (rows_c, out_c), _ = quiet(lambda: attrib.cmd_passes(
             attrib.parse(["passes", "--channels", str(c)])))
@@ -1728,7 +2047,7 @@ def main() -> int:
     stages, _ = quiet(lambda: attrib.main(["decode", "--channels",
                                            str(C_BIG)]))
     ops, _ = quiet(lambda: attrib.main(["micro", "--channels", str(C_BIG)]))
-    path_launches["bench_attrib_torch passes"] = mf.launches
+    path_launches["bench_attrib_torch passes"] = read_launches()
     log(f"bench_attrib_torch decode C={C_BIG} (host ms / device ms): "
         + "; ".join(f"{r['stage']} x {r['batch']} {r['ms']:.2f} / "
                     f"{r['device_ms']:.2f}" for r in stages)
@@ -1742,20 +2061,20 @@ def main() -> int:
     got_g = {b: next(x["config"]["group"] for x in recs if "config" in x)
              for b, recs in groups}
     assert got_g == {4096: 5, 16384: 25}, got_g
-    path_launches["bench_attrib_torch groups (subprocesses)"] = sum(
-        x["launches"] for _, recs in groups for x in recs if "launches" in x)
+    path_launches["bench_attrib_torch groups (subprocesses)"] = Counts(mf=sum(
+        x["launches"] for _, recs in groups for x in recs if "launches" in x))
     log("bench_attrib_torch groups C=512: " + "; ".join(
         f"budget {b} g={got_g[b]}: " + ", ".join(
             f"{x['variant']} {x['ms_per_dispatch']:.1f}" for x in recs
             if "variant" in x) for b, recs in groups) + f" ms [{smi}]")
 
     # 25. the streaming stage timer: Trigger per transport, MultiTrigger(8)
-    mf.launches = 0
+    reset_launches()
     singles, _ = quiet(lambda: bstream.single_main(0.5, 4, ["f32", "i16",
                                                             "i8"], 3, dev))
     multis, _ = quiet(lambda: bstream.multi_main(8, 0.5, 4, ["i16", "i4"], 3,
                                                  dev))
-    path_launches["bench_stream_torch"] = mf.launches
+    path_launches["bench_stream_torch"] = read_launches()
     assert all(r["detections_ok"] for r in singles + multis), \
         (singles, multis)
     log("bench_stream_torch 0.5 s, 4-half-frame chunks, best of 3 passes: "
@@ -1780,26 +2099,35 @@ def main() -> int:
          for r in seam["curve"]}
     assert p == {-30.0: (0.0, 0.0), 0.0: (1.0, 1.0)}, seam
     assert seam["n_shards"] == 4 and seam["launches"] > 0, seam
-    path_launches["seam_sweep_torch (rank 0 of 4)"] = seam["launches"]
+    path_launches["seam_sweep_torch (rank 0 of 4)"] = Counts(
+        mf=seam["launches"])
     log(f"seam_sweep_torch on 4 gloo ranks on one card: P(detect) "
         f"continuous / sharded {p} over 2 trials, "
         f"{time.perf_counter() - t0:.1f} s with start-up, "
         f"{seam['launches']} kernel launches on rank 0 [{smi}]")
 
     # 27. the SNR curve, two trials a point, 4 dB steps
-    mf.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=mf.BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         payload, _ = quiet(lambda: curvemod.main(
             ["--trials", "2", "--step", "4", "--out-dir", tmp]))
         written = sorted(x.name for x in pathlib.Path(tmp).iterdir())
     assert written == ["SNR_CURVE_torch.md", "snr_curve_torch.json"], written
     knees = dict(payload["knee_db"], **payload["pbch_limited"]["knee_db"])
     assert len(knees) == 10 and None not in knees.values(), knees
-    path_launches["make_snr_curve_torch"] = mf.launches
+    path_launches["make_snr_curve_torch"] = read_launches()
+    # every path decoded, so each kernel launched on it; the two tools run
+    # in subprocesses report the matched filter's launches only
+    mf_only = ("bench_attrib_torch groups (subprocesses)",
+               "seam_sweep_torch (rank 0 of 4)")
+    for path, n in path_launches.items():
+        need = ("mf",) if path in mf_only else KERNELS
+        assert all(n.get(k, 0) for k in need), \
+            f"{path}: a kernel never launched: {n}"
     log(f"make_snr_curve_torch --trials 2 --step 4: both files written, "
         f"knees (dB) {knees}, {time.perf_counter() - t0:.1f} s, "
-        f"{mf.launches} kernel launches [{payload['device']}]")
+        f"{read_launches()} kernel launches [{payload['device']}]")
 
     # 28. the kernel at the shapes these tools add
     for label, n_rows, seconds, g in (
@@ -1858,7 +2186,8 @@ def main() -> int:
     busy = sum(e.device_time_total for e in dev_events) / 1e3
     log(f"Trigger f32 under torch.profiler, {n_disp} dispatches while "
         f"tracking: {sum(e.count for e in dev_events) / n_disp:.0f} device "
-        f"kernels and copies a dispatch, {busy / n_disp:.3f} ms of device "
+        f"kernels and copies a dispatch (~725 before the pass-B kernel, "
+        f"PERF.md), {busy / n_disp:.3f} ms of device "
         f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
         f"idle share {1 - busy / wall:.3f} [{smi}]")
 
@@ -1888,14 +2217,21 @@ def main() -> int:
 
     log(json.dumps({"rows": list(rows.values()), "ranks": rank_table}))
     c128 = rows[(f"grid C={C_BIG} g=25", str(torch.bfloat16))]
+    b128 = pb_rows[f"C={C_BIG} g=25 (real power)"]
+    v73k = vit_rows[(73728, 0.8)]
+
+    def by_path(k):
+        return {path: n.get(k, 0) for path, n in path_launches.items()
+                if n.get(k, 0)}
+
     log(smi)
     print(json.dumps({"kernels": [{
         "name": "matched_filter.group_power",
         "route": "cuda",
         "source": "ltetrigger_tpu_torch/csrc/matched_filter.cu",
         "replaces": "ltetrigger_tpu/ops/pallas/matched_filter.py:59",
-        "launches": sum(path_launches.values()),
-        "launches_by_path": path_launches,
+        "launches": sum(by_path("mf").values()),
+        "launches_by_path": by_path("mf"),
         "max_abs_err": worst,
         "ms": c128["ms"],
         "plain_ms": c128["plain_ms"],
@@ -1903,6 +2239,35 @@ def main() -> int:
         "bound_by": c128["bound_by"],
         "library_ms": c128["library_ms"],
         "shapes": list(rows.values()),
+    }, {
+        "name": "pass_b.scan_group",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/pass_b.cu",
+        "replaces": "ltetrigger_tpu/models/trigger.py:422",
+        "launches": sum(by_path("pb").values()),
+        "launches_by_path": by_path("pb"),
+        "max_abs_err": pb_worst,
+        "ms": b128["ms"],
+        "plain_ms": b128["plain_ms"],
+        "graph_ms": b128["graph_ms"],
+        "bound_ms": b128["bound_ms"],
+        "bound_by": b128["bound_by"],
+        "library_ms": None,
+        "shapes": list(pb_rows.values()),
+    }, {
+        "name": "viterbi.viterbi_decode_wa",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/viterbi.cu",
+        "replaces": "ltetrigger_tpu/ops/viterbi.py:168",
+        "launches": sum(by_path("vit").values()),
+        "launches_by_path": by_path("vit"),
+        "max_abs_err": vit_worst,
+        "ms": v73k["ms"],
+        "plain_ms": v73k["plain_ms"],
+        "bound_ms": v73k["bound_ms"],
+        "bound_by": v73k["bound_by"],
+        "library_ms": None,
+        "shapes": list(vit_rows.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

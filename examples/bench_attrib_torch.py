@@ -28,7 +28,8 @@ Subcommands:
   decode  [--channels C]
       Pass C's decode stages at the engine's shapes (C x K_CANDIDATES x R
       candidates): the PBCH front end under both CPs, the codeword search
-      (Viterbi + CRC + unpack), the raw wrap-around Viterbi.
+      (Viterbi + CRC + unpack), the raw wrap-around Viterbi (on a card its
+      hand-written kernel, as the engine runs it).
   micro   [--channels C] [--steps S]
       Pass C's small stages: slot-0 segment reads at random and at the
       engine's starts (`trigger._read`), the CFO rotation, the ring
@@ -177,7 +178,7 @@ def cmd_groups(args) -> list:
 # ---------------------------------------------------------------- decode --
 def cmd_decode(args) -> list:
     from ltetrigger_tpu_torch.ops import pbch
-    from ltetrigger_tpu_torch.ops.viterbi import viterbi_decode_wa
+    from ltetrigger_tpu_torch.ops.kernels.viterbi import viterbi_decode_wa
 
     dev = _setup(args)
     C, K = args.channels, trig.K_CANDIDATES

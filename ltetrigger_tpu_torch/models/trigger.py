@@ -7,9 +7,10 @@ observable contract, in PyTorch's idiom.
           9600 candidate positions start at grid0 + 9600 t), so the matched
           filter for g steps at once is one blocked-Toeplitz product, run by
           the hand-written CUDA kernel (ops/kernels/matched_filter.py).
-  pass B  the sequential state machine, a Python loop over half-frame steps:
+  pass B  the sequential state machine over the steps of each group:
           EMA'd correlation power, peak/PSR, hysteresis score/timer/tracking,
-          PSR telemetry ring.
+          PSR telemetry ring; one launch of the hand-written CUDA kernel per
+          group (ops/kernels/pass_b.py).
   pass C  batched over the step axis: slot-0 tail extraction, CFO estimate
           and ring, CP detect, SSS, MIB capture selection, then one batched
           PBCH + Viterbi decode of the captured candidates with the 40 ms TTI
@@ -47,12 +48,14 @@ import torch
 from ..ltecore.constants import (DEFAULT_TRACK_AFTER,
                                  DEFAULT_TRACK_EVERY,
                                  HALF_FRAME_LENGTH,
-                                 MOVING_AVG_SZ, PSR_EMA_ALPHA,
+                                 MOVING_AVG_SZ,
                                  PSS_SYMBOL_START, SLOT_LENGTH,
                                  SYMBOL_SZ)
 from ..ops import cfo as cfo_ops
 from ..ops import correlate, cplx, dft, pbch, sync
-from ..ops.kernels import matched_filter
+from ..ops.device import resolve_device
+from ..ops.kernels import matched_filter, pass_b
+from ..ops.kernels.pass_b import ring_push as _ring_push
 
 R = 3                                   # N_id_2 hypotheses
 LOOKBACK = PSS_SYMBOL_START             # 832 samples of history before grid0
@@ -148,8 +151,10 @@ _STATE_FILL = {"pos": LOOKBACK, "peak": LOOKBACK, "mib_cell": -1,
 
 
 def init_state(start_pos: int = LOOKBACK, batch: tuple = (),
-               device="cpu") -> TriggerState:
-    """Fresh carry for `batch` channels (leading dims) on `device`."""
+               device="cuda") -> TriggerState:
+    """Fresh carry for `batch` channels (leading dims) on `device` (the
+    card unless the caller asks for the CPU; raises without one)."""
+    device = resolve_device(device)
     fill = dict(_STATE_FILL, pos=start_pos)
     return TriggerState(**{
         f: torch.full(tuple(batch) + shape, fill.get(f, 0), dtype=dt,
@@ -157,10 +162,12 @@ def init_state(start_pos: int = LOOKBACK, batch: tuple = (),
         for f, (shape, dt) in _STATE_SHAPES.items()})
 
 
-def state_from_numpy(d: dict, device="cpu") -> TriggerState:
+def state_from_numpy(d: dict, device="cuda") -> TriggerState:
     """The JAX package's TriggerState as numpy arrays ({field: array}) ->
-    the port's TriggerState on `device`.  A missing `chest` (checkpoints
-    older than the channel-estimate telemetry) reads as zeros."""
+    the port's TriggerState on `device` (the card unless the caller asks
+    for the CPU; raises without one).  A missing `chest` (checkpoints older
+    than the channel-estimate telemetry) reads as zeros."""
+    device = resolve_device(device)
     d = dict(d)
     batch = np.asarray(d["pos"]).shape[:-1]
     d.setdefault("chest", np.zeros(batch + _STATE_SHAPES["chest"][0],
@@ -178,12 +185,6 @@ def state_to_numpy(state: TriggerState) -> dict:
 def _ring_mean(ring, count):
     n = torch.clamp(count, max=MOVING_AVG_SZ)
     return torch.where(n > 0, ring.sum(dim=-1) / torch.clamp(n, min=1), 0.0)
-
-
-def _ring_push(ring, count, value):
-    idx = torch.remainder(count, MOVING_AVG_SZ)[..., None]
-    slots = torch.arange(MOVING_AVG_SZ, device=ring.device)
-    return torch.where(slots == idx, value[..., None], ring)
 
 
 def _read(comp: torch.Tensor, starts: torch.Tensor, length: int,
@@ -236,52 +237,8 @@ def _pick_group(n_steps: int, batch: int) -> int:
 
 
 # ======================================================================
-# pass B — the sequential state machine
+# passes A+B — pass B, the sequential state machine, in ops/kernels/pass_b.py
 # ======================================================================
-def _step_core(state: TriggerState, power, grid: int, psr_threshold: float,
-               track_after: int, track_every: int):
-    """One active half-frame step (trailing [R]; power [..., 75, R, 128]).
-
-    Returns (next state, per-step outputs as a dict of [.., R] tensors)."""
-    search = (~state.tracking) | (state.timer == 0)
-    timer = torch.where(search, track_every, state.timer - 1)
-
-    s4 = search[..., None, :, None]
-    ema = torch.where(s4, PSR_EMA_ALPHA * power
-                      + (1 - PSR_EMA_ALPHA) * state.ema, state.ema)
-    peak_new, psr_new = correlate.peak_and_psr_blocked(ema)
-    psr = torch.where(search, psr_new, state.psr)
-    peak = torch.where(search, peak_new, state.peak)
-
-    psr_ring = torch.where(search[..., None],
-                           _ring_push(state.psr_ring, state.psr_count, psr),
-                           state.psr_ring)
-    psr_count = state.psr_count + search.to(torch.int32)
-
-    # --- hysteresis scoring (reference incr_score / reset_score) ---
-    over = psr > psr_threshold
-    score_inc = torch.clamp(state.score + 1, max=track_after)
-    crossing = over & (~state.tracking) & (score_inc == track_after)
-    lost = (~over) & (state.score > 0)
-
-    score = torch.where(over, score_inc, 0)
-    tracking = over & (state.tracking | crossing)
-    ema = torch.where((crossing | lost)[..., None, :, None], 0.0, ema)
-    timer = torch.where(lost, 0, timer)
-    psr_ring = torch.where(lost[..., None], 0.0, psr_ring)
-    psr_count = torch.where(lost, 0, psr_count)
-    psr_max = torch.maximum(state.psr_max, psr)
-    emit = over | lost
-
-    nxt = state._replace(
-        pos=torch.full_like(state.pos, grid + HALF_FRAME_LENGTH),
-        ema=ema, score=score, timer=timer, tracking=tracking, psr=psr,
-        peak=peak, psr_max=psr_max, psr_ring=psr_ring, psr_count=psr_count)
-    out = {"emit": emit, "lost": emit & lost,
-           "consumed": torch.full_like(score, HALF_FRAME_LENGTH)}
-    return nxt, out
-
-
 def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
               psr_threshold: float,
               track_after: int = DEFAULT_TRACK_AFTER,
@@ -305,39 +262,31 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
         n_valid = n
     batch = math.prod(buffer[0].shape[:-1]) or 1
     g = _pick_group(n_steps, batch)
-    nbatch = buffer[0].ndim - 1
     if grid0 is None:
         host_syncs["grid"] += 1
         grid0 = int(state.pos.reshape(-1)[0])
     thresh = float(np.float32(psr_threshold))
 
-    zero_b = torch.zeros_like(state.tracking)
-    zero_i = torch.zeros_like(state.score)
-    rows = []
+    groups = []
     for gi in range(n_steps // g):
         lo = grid0 + gi * g * HALF_FRAME_LENGTH
-        if lo + correlate.V2_WINDOW > n_valid:
-            power = None            # no active step in this group
-        else:
-            power = _group_power(buffer, lo, g)      # [.., g, 75, R, 128]
-        for ti in range(g):
-            grid = lo + ti * HALF_FRAME_LENGTH
-            active = grid + correlate.V2_WINDOW <= n_valid
-            if active:
-                p_t = power.select(nbatch, ti)
-                state, o = _step_core(state, p_t, grid, thresh,
-                                      track_after, track_every)
-            else:
-                o = {"emit": zero_b, "lost": zero_b, "consumed": zero_i}
-            rows.append((state.peak, state.psr, state.score, state.tracking,
-                         o["emit"], o["lost"], o["consumed"]))
+        # active steps (grid + 9728 <= n_valid) are a prefix of the group
+        n_active = min(g, max(0, (n_valid - correlate.V2_WINDOW - lo)
+                              // HALF_FRAME_LENGTH + 1))
+        if n_active == 0:           # no active step: no pass A, no launch
+            groups.append(pass_b.idle_rows(state, g))
+            continue
+        power = _group_power(buffer, lo, g)          # [.., g, 75, R, 128]
+        state, rows = pass_b.scan_group(state, power, lo, n_active, thresh,
+                                        track_after, track_every)
+        groups.append(rows)
     # the grid of every step from host integers: no copy to the device
     steps = torch.arange(n_steps, dtype=torch.int32, device=buffer[0].device)
     grids = grid0 + HALF_FRAME_LENGTH * steps
     raw = RawStepOutput(
         grid=grids, active=grids + correlate.V2_WINDOW <= n_valid,
-        **{f: torch.stack(c) for f, c in
-           zip(RawStepOutput._fields[2:], zip(*rows))})
+        **{f: c[0] if len(c) == 1 else torch.cat(c) for f, c in
+           zip(RawStepOutput._fields[2:], zip(*groups))})
     return state, raw
 
 

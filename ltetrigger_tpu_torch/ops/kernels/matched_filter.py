@@ -29,36 +29,23 @@ hi/lo split of both operands (`split_tf32`), which keeps the float32 result
 to ~1e-6 relative; the plain version is one float32 matmul.
 
 The kernel is compiled with nvcc at first use into ltetrigger_tpu_torch/
-_build/ (keyed by a hash of the sources) and bound with ctypes.  Several
-processes (the ranks of a mesh) may reach first use at once: each compiles
-to a temporary name of its own and renames it into place, and a rename is
-atomic, so no process ever loads a half-written library; at worst two of
-them compile the same sources.  There is no lock file to go stale.
+_build/ (ops/kernels/build.py, which builds every csrc/*.cu) and bound with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
 from ...ltecore.constants import SYMBOL_SZ
 from .. import correlate
+from . import build
 
 NBLK = correlate.NBLK                    # 75 blocks of 128 per half-frame
 NPOW = correlate.N_ROOTS * SYMBOL_SZ     # 384 power columns per block
-_PKG = pathlib.Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = 0          # kernel launches through either entry point
 _lib = None
@@ -100,52 +87,11 @@ def group_power_plain(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int,
                                           SYMBOL_SZ))
 
 
-# ------------------------------------------------------------------ build --
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def build() -> tuple[pathlib.Path, float]:
-    """Compile csrc/*.cu into one shared library (cached by source hash).
-    The compiler's report (registers, spills, shared memory per kernel) is
-    kept beside it as <library>.log.
-
-    returns (library path, seconds spent compiling; 0.0 on a cache hit)."""
-    srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libltetrigger_kernels_{h.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *(str(s) for s in srcs)], capture_output=True,
-                          text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
-                           f"{done.stdout}{done.stderr}")
-    tmp_log = tmp.with_suffix(".log")
-    tmp_log.write_text(done.stdout + done.stderr)
-    os.replace(tmp_log, lib.with_suffix(".log"))
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
-
-
+# ---------------------------------------------------------------- binding --
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = build.library()
         fn = lib.mf_group_power
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -219,9 +165,7 @@ def rows_power(buf_re: torch.Tensor, buf_im: torch.Tensor, lo: int, m: int,
                             wt.data_ptr(), scratch.data_ptr(),
                             scratch.numel(), out.data_ptr(), nb, n, lo, m,
                             bf16, stream)
-    if rc != 0:
-        raise RuntimeError(f"mf_group_power launch failed: error {rc} (a "
-                           f"cudaError, or 20000 + a CUresult)")
+    build.check(rc, "mf_group_power")
     launches += 1
     return out
 

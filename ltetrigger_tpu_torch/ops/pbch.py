@@ -22,7 +22,7 @@ from ..ltecore import coding, scrambling
 from ..ltecore.constants import (NOF_PRB_TABLE, SLOT_LENGTH, SYMBOL_SZ,
                                  symbol_data_offsets)
 from . import cplx, dft
-from .viterbi import viterbi_decode_wa
+from .kernels.viterbi import viterbi_decode_wa
 
 N_RB_MAX = 110
 E_BITS = {True: 480, False: 432}

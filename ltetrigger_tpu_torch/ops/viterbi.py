@@ -103,17 +103,9 @@ def _tables_on(device: str):
             torch.from_numpy(BITS2.astype(np.int64)).to(device))
 
 
-def viterbi_decode_wa(llr: torch.Tensor):
-    """Wrap-around tail-biting decode, radix-4, in three phases:
-
-      phase 1 (symbols   0..39): ACS only;
-      phase 2 (symbols  40..79): ACS + register-exchange recording, 2 bits
-              a step into the survivor register (20 steps = the 40 bits);
-      phase 3 (symbols 80..119): ACS + register exchange only.
-
-    llr: [B, 40, 3] float32 — +1 favours bit 0.
-    returns: (bits [B, 40] int32, metric [B] float32)
-    """
+def final_metrics(llr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three phases of `viterbi_decode_wa`: (the 64 final path metrics
+    [B, 64] float32, the survivor registers [B, 64] int64)."""
     OB2, BITS2 = _tables_on(str(llr.device))
     B, n = llr.shape[0], llr.shape[1]
     assert n == 40, "wrap-around layout is sized for the 40-bit PBCH block"
@@ -145,7 +137,24 @@ def viterbi_decode_wa(llr: torch.Tensor):
     for t in range(40, 60):
         m, dec = acs(m, r6[:, t])
         reg = exchange(reg, dec)
+    return m, reg
 
+
+def viterbi_decode_wa(llr: torch.Tensor):
+    """Wrap-around tail-biting decode, radix-4, in three phases:
+
+      phase 1 (symbols   0..39): ACS only;
+      phase 2 (symbols  40..79): ACS + register-exchange recording, 2 bits
+              a step into the survivor register (20 steps = the 40 bits);
+      phase 3 (symbols 80..119): ACS + register exchange only.
+
+    The plain version of the hand-written kernel in ops/kernels/viterbi.py.
+
+    llr: [B, 40, 3] float32 — +1 favours bit 0.
+    returns: (bits [B, 40] int32, metric [B] float32)
+    """
+    B, n = llr.shape[0], llr.shape[1]
+    m, reg = final_metrics(llr)
     best = torch.argmax(m, dim=-1)
     metric = m.amax(dim=-1) / 3.0
     word = reg[torch.arange(B, device=llr.device), best]

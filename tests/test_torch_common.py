@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ltetrigger_tpu.ltecore import synth
+from ltetrigger_tpu_torch.ops import viterbi as torch_viterbi
 
 torch.set_num_threads(2)          # tier-1 runs the files in 6 workers
 
@@ -98,3 +99,11 @@ def assert_fields(got, ref, fields, what):
                                        **FLOAT_TOL[f])
         else:
             np.testing.assert_array_equal(g, r, err_msg=f"{what}.{f}")
+
+
+def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
+    """[B] bool: the plain Viterbi decoder's two best final path metrics
+    differ by at most `rel` of the best's magnitude, where two correct
+    decoders may keep different paths."""
+    top = torch_viterbi.final_metrics(llr)[0].topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1] <= rel * top[:, 0].abs().clamp(min=1.0)

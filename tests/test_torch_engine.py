@@ -43,7 +43,7 @@ def test_passes_a_b_acquire_lose_reacquire():
     sig = acq_loss_reacq(152)
     jb, tb = _buffers(sig)
     jst, jraw = jtrig.scan_pass(jb, jtrig.init_state(), 30, 4.0, 4, 2)
-    st, raw = trig.scan_pass(tb, trig.init_state(), 30, 4.0, 4, 2)
+    st, raw = trig.scan_pass(tb, trig.init_state(device="cpu"), 30, 4.0, 4, 2)
     emit = np.asarray(jraw.emit)
     assert np.asarray(jraw.tracking).any() and np.asarray(jraw.lost).any()
     assert np.asarray(jraw.tracking)[-1].any(), "must reacquire"
@@ -58,7 +58,7 @@ def test_scan_engine_one_channel(chunks):
     or two of 15 with the carry passed between them."""
     sig = acq_loss_reacq(301)
     jb, tb = _buffers(sig)
-    jst, st = jtrig.init_state(), trig.init_state()
+    jst, st = jtrig.init_state(), trig.init_state(device="cpu")
     published = False
     for n in chunks:
         jst, jout = _jax_engine(jb, jst, n, 4.0, 4, 2)
@@ -82,7 +82,8 @@ def test_scan_engine_batched_two_channels():
     jb, tb = jcplx.from_numpy(buf), to_pair_torch(buf)
     jst, jout = _jax_engine(jb, _jax_batched_state(2), 16, 4.0, 4,
                              2)
-    st, out = trig.scan_engine(tb, trig.init_state(batch=(2,)), 16, 4.0, 4, 2)
+    st, out = trig.scan_engine(tb, trig.init_state(batch=(2,), device="cpu"),
+                               16, 4.0, 4, 2)
     assert np.asarray(jout.track_event)[:, 0].any()
     assert np.asarray(jout.track_event)[:, 1].any()
     _assert_fields(out, jout, trig.StepOutput._fields, "out")
@@ -111,7 +112,7 @@ def test_capture_overflow(bad, good, chunks):
     sig = np.concatenate([_hostile_burst(151, bad, good),
                           np.zeros(4 * 9600, np.complex64)])
     jb, tb = _buffers(sig)
-    jst, st = jtrig.init_state(), trig.init_state()
+    jst, st = jtrig.init_state(), trig.init_state(device="cpu")
     for n in chunks:
         jst, jout = _jax_engine(jb, jst, n, 4.0, 16, 8)
         st, out = trig.scan_engine(tb, st, n, 4.0, 16, 8)
@@ -130,7 +131,7 @@ def test_carry_from_jax_continues_in_port():
     jb, tb = _buffers(sig)
     jst, _ = _jax_engine(jb, jtrig.init_state(), 15, 4.0, 4, 2)
     d = {f: np.asarray(getattr(jst, f)) for f in jtrig.TriggerState._fields}
-    st = trig.state_from_numpy(d)
+    st = trig.state_from_numpy(d, device="cpu")
     back = trig.state_to_numpy(st)
     for f in d:
         assert back[f].dtype == d[f].dtype
@@ -146,7 +147,7 @@ def test_carry_from_jax_continues_in_port():
 def test_pack_output_roundtrip():
     sig = acq_loss_reacq(152)
     _, tb = _buffers(sig)
-    _, out = trig.scan_engine(tb, trig.init_state(), 10, 4.0, 4, 2)
+    _, out = trig.scan_engine(tb, trig.init_state(device="cpu"), 10, 4.0, 4, 2)
     packed = trig.pack_output(out)
     assert packed.shape == (10, 3, 15) and packed.dtype == torch.float32
     back = trig.unpack_output(packed)

@@ -68,7 +68,7 @@ def test_mib_postpass_overrides_match_jax(kind, do_extract, do_decode):
     jst0 = jtrig.TriggerState(*(jnp.broadcast_to(x, (2,) + x.shape)
                                 for x in jtrig.init_state()))
     jraw, (jst, jout) = _jax_dispatch(jb, jst0, n, do_extract, do_decode)
-    st0 = trig.init_state(batch=(2,))
+    st0 = trig.init_state(batch=(2,), device="cpu")
     fin, raw = trig.scan_pass(tb, st0, 8, 4.0, grid0=trig.LOOKBACK)
     trig.host_syncs.clear()
     st, out = trig._mib_postpass(st0, fin, raw, tb, n, do_extract=do_extract,

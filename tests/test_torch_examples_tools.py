@@ -166,8 +166,8 @@ def test_passes_ladder_equals_scan_engine_and_jax():
         assert set(r) == jax_keys[1] | {"device_ms", "launches"}
         assert r["device_ms"] is None and r["launches"] == 0
     buf = bench_sweep_torch.make_buffer(2, 0.55, "cpu")
-    _, want = trig.scan_engine(buf, trig.init_state(batch=(2,)), 10, 4.0,
-                               grid0=trig.LOOKBACK)
+    _, want = trig.scan_engine(buf, trig.init_state(batch=(2,), device="cpu"),
+                               10, 4.0, grid0=trig.LOOKBACK)
     for f in trig.StepOutput._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert got.track_event[:, :, 123 % 3].any()

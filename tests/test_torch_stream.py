@@ -371,9 +371,9 @@ def test_scan_with_host_grid_equals_scan_without():
     buf = tuple(torch.nn.functional.pad(c, (trig.LOOKBACK, trig.WINDOW))
                 for c in to_pair_torch(sig))
     trig.host_syncs.clear()
-    st_a, out_a = trig.scan_engine(buf, trig.init_state(), 6, 4.0)
+    st_a, out_a = trig.scan_engine(buf, trig.init_state(device="cpu"), 6, 4.0)
     assert trig.host_syncs["grid"] == 1
-    st_b, out_b = trig.scan_engine(buf, trig.init_state(), 6, 4.0,
+    st_b, out_b = trig.scan_engine(buf, trig.init_state(device="cpu"), 6, 4.0,
                                    grid0=trig.LOOKBACK)
     assert trig.host_syncs["grid"] == 1 and trig.host_syncs["emit"] == 2
     for a, b in zip(tuple(st_a) + tuple(out_a), tuple(st_b) + tuple(out_b)):
