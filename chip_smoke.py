@@ -24,12 +24,27 @@ Phases, in order; any failure exits non-zero:
      equal, the EMA bit for bit; CUDA-event times of the kernel and the
      plain group beside the bound (the searched root-steps' power, the EMA
      and ring in and out), at C=128 also the plain group captured once in a
-     CUDA graph and replayed (a measurement only, never a path);
+     CUDA graph and replayed (a measurement only, never a path); the
+     kernel's registers, spills, shared memory and resident blocks a SM
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and each shape's
+     waves, held to its launch plan;
  3b. the Viterbi kernel (csrc/viterbi.cu) against its plain version on
      seeded codewords at sigma 0.3 / 0.8 / 1.5, B = 48 and 73728 (the
      C=128 x 100 decode's count): bits equal except where the plain
      version's two best final metrics lie within 1e-4 relative, metric
-     rtol 1e-5; the same times and bound;
+     rtol 1e-5; bits equal to the kernel's schedule in PyTorch
+     (`schedule_model`) on every codeword; the same times and bound, and
+     the same residency lines;
+     every kernel is timed twice: its wrapper call (CUDA events over 10
+     host calls, `ms`) and the same call captured once in a CUDA graph and
+     replayed (no host work, `replay_ms`);
+     with `--parent DIR` (DIR holds an earlier tree of the repo whose
+     pass-B and Viterbi entry points have this tree's signatures, e.g. a
+     `git archive` of the parent commit): DIR/ltetrigger_tpu_torch copied
+     into a temporary directory outside the repo and imported there as a
+     package of its own, whose wrappers and build.py build and launch its
+     kernels; they are held to the same plain versions and timed beside
+     the kernels on the same inputs, parent, kernel, kernel, parent;
   4. the main path: `search(device="cuda")` over 1 s of four synthetic cells
      at 1.92 / 7.68 / 15.36 / 30.72 Msps, then the CLI on a capture file,
      with the three kernels' launch counts set to 0 before them and read
@@ -135,6 +150,8 @@ Phases, in order; any failure exits non-zero:
      module from a file outside its own directory.
 
 Nothing of phases 1-21 was cut to make room for the later ones.
+`python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3b alone
+and ends with {"ok": null, "partial": "kernels"}: it drives no path.
 
 Every path is driven with the three kernels' launch counts (matched filter
 "mf", pass B "pb", Viterbi "vit") set to 0 just before it and read just
@@ -151,6 +168,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -227,6 +245,24 @@ def cuda_ms(fn, iters: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def replay_ms(fn, iters: int = 10) -> float:
+    """Mean device milliseconds a call of `fn` with the host's launch work
+    taken out: `fn` captured once in a CUDA graph (after two warm-ups on a
+    side stream) and the graph replayed (CUDA events)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    cg = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cg):
+        fn()
+    ms = cuda_ms(cg.replay, iters)
+    del cg
+    return ms
 
 
 def bound(b: int, m: int, dt) -> tuple[float, str]:
@@ -380,6 +416,50 @@ def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
     from ltetrigger_tpu_torch.ops import viterbi
     top = viterbi.final_metrics(llr)[0].topk(2, dim=-1).values
     return top[:, 0] - top[:, 1] <= rel * top[:, 0].abs().clamp(min=1.0)
+
+
+def parent_kernels(tree: pathlib.Path) -> tuple[dict, float]:
+    """The pass-B and Viterbi wrappers of another tree of the repo (e.g. a
+    `git archive` of the parent commit): tree/ltetrigger_tpu_torch copied
+    into a temporary directory and imported there as a package of its own,
+    `parent_ltetrigger_tpu_torch`, so that its own wrappers pack their own
+    arguments and its own build.py builds its own csrc at first use.  Its
+    entry points have the signatures of this tree's.  returns ({"pb":
+    scan_group_kernel, "vit": viterbi_decode_wa_kernel}, seconds of its
+    build)."""
+    name = "parent_ltetrigger_tpu_torch"
+    pkg = pathlib.Path(tempfile.mkdtemp(prefix="parent_kernels_")) / name
+    shutil.copytree(tree / "ltetrigger_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    build = importlib.import_module(f"{name}.ops.kernels.build")
+    pb = importlib.import_module(f"{name}.ops.kernels.pass_b")
+    vk = importlib.import_module(f"{name}.ops.kernels.viterbi")
+    t0 = time.perf_counter()
+    build.library()
+    return ({"pb": pb.scan_group_kernel, "vit": vk.viterbi_decode_wa_kernel},
+            time.perf_counter() - t0)
+
+
+def residency(label: str, info: dict, plan_of, shapes, smi: str) -> None:
+    """Print what the card holds of a kernel and each shape's waves, and
+    hold the occupancy API to the launch plan's blocks a SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = plan_of(1, sms)
+    per_wave = info["blocks_per_sm"] * sms
+    log(f"{label}: {info['regs']} registers a thread, {info['local_bytes']} "
+        f"B of local (spill) memory a thread, {info['smem_bytes']} B of "
+        f"static shared memory a block (plan {plan['smem_bytes']}), "
+        f"{info['blocks_per_sm']} blocks resident a SM (occupancy API; plan "
+        f"{plan['blocks_per_sm']}), {plan['threads']} threads a block, "
+        f"cluster {plan['cluster']}; waves on {sms} SMs: " + ", ".join(
+            f"{what} {-(-plan_of(n, sms)['blocks'] // per_wave)}"
+            for what, n in shapes) + f" [{smi}]")
+    assert info["blocks_per_sm"] >= plan["blocks_per_sm"], (label, info)
 
 
 def conv_encode_batch(bits: np.ndarray, polys) -> np.ndarray:
@@ -889,6 +969,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
         return rank_main(sys.argv[2:])
     only_cards = sys.argv[1:2] == ["--cards"]
+    only_kernels = sys.argv[1:2] == ["--kernels"]
+    parent_tree = None
+    if "--parent" in sys.argv:
+        parent_tree = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
+        assert (parent_tree / "ltetrigger_tpu_torch" / "csrc").is_dir(), \
+            parent_tree
     # ---- 1. the card ----
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -934,6 +1020,13 @@ def main() -> int:
                 x.replace("ptxas info    :", "").strip()
                 for x in report[i + 2:i + 4]))      # and registers
 
+    parent = None
+    if parent_tree is not None:
+        parent, parent_s = parent_kernels(parent_tree)
+        log(f"parent kernels: {parent_tree}/ltetrigger_tpu_torch imported "
+            f"from a temporary copy as parent_ltetrigger_tpu_torch, its "
+            f"library built by its own build.py in {parent_s:.2f} s")
+
     if only_cards:      # phases 1, 2 and 21 alone
         big, cells_big = big_buffer(dev, synth, trig)
         want, one_ms = one_process_scan(big, channel_scan, trig)
@@ -971,6 +1064,7 @@ def main() -> int:
         worst = max(worst, err)
         del ref
         ms = cuda_ms(kernel)
+        dms = replay_ms(kernel)
         pms = cuda_ms(plain)
         x = operand(buf, at, m)
         w = w_fat
@@ -980,9 +1074,10 @@ def main() -> int:
         del x
         bms, by = bound(buf[0].shape[0], m, dt)
         rows[(label, str(dt))] = dict(
-            shape=label, dtype=str(dt), ms=ms, plain_ms=pms, library_ms=lms,
-            bound_ms=bms, bound_by=by, max_abs_err=err)
-        log(f"{label} {dt}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+            shape=label, dtype=str(dt), ms=ms, replay_ms=dms, plain_ms=pms,
+            library_ms=lms, bound_ms=bms, bound_by=by, max_abs_err=err)
+        log(f"{label} {dt}: kernel {ms:.4f} ms a wrapper call ({dms:.4f} "
+            f"replayed from a CUDA graph), plain {pms:.4f} ms, library "
             f"matmul {lms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err "
             f"{err:.3e}")
         return got
@@ -1068,29 +1163,45 @@ def main() -> int:
         def plain():
             return pb.scan_group_plain(state0, powers[0], grid0, n_acts[0],
                                        4.0, ta, te)
-        ms, pms = cuda_ms(kern), cuda_ms(plain, iters=3)
-        gms = None
-        if graph:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(2):
-                    plain()
-            torch.cuda.current_stream().wait_stream(side)
-            cg = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(cg):
-                plain()
-            gms = cuda_ms(cg.replay)
-            del cg
+        # the wrapper's call (CUDA events over host calls) and the same call
+        # replayed from a CUDA graph (no host work); with a parent tree,
+        # parent, kernel, kernel, parent
+        old_ms = None
+        if parent is not None:
+            def old():
+                return parent["pb"](state0, powers[0], grid0, n_acts[0], 4.0,
+                                    ta, te)
+            st_o, ro = old()
+            st_p, rp = plain()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(ro, rp)), label
+            assert all(torch.equal(getattr(st_o, f), getattr(st_p, f))
+                       for f in trig.TriggerState._fields), label
+            old_ms = [(cuda_ms(old), replay_ms(old))]
+        ms, dms = cuda_ms(kern), replay_ms(kern)
+        if parent is not None:
+            again = (cuda_ms(kern), replay_ms(kern))
+            old_ms.append((cuda_ms(old), replay_ms(old)))
+        pms = cuda_ms(plain, iters=3)
+        gms = replay_ms(plain) if graph else None
         lanes = state0.score.numel() // 3
         bms, by = pass_b_bound(lanes, powers[0].shape[-4], n_search)
-        pb_rows[label] = dict(shape=label, ms=ms, plain_ms=pms, graph_ms=gms,
-                              bound_ms=bms, bound_by=by, max_abs_err=0.0,
+        pb_rows[label] = dict(shape=label, ms=ms, replay_ms=dms,
+                              plain_ms=pms, graph_ms=gms, bound_ms=bms,
+                              bound_by=by, max_abs_err=0.0,
                               searched=n_search)
+        if old_ms is not None:
+            pb_rows[label].update(again=again, parent=old_ms)
         log(f"pass B {label}: kernel = plain version over {len(powers)} "
             f"groups (rows and state exact, EMA bit for bit; acquired "
-            f"{acquired}, lost {lost}); group 0: kernel {ms:.4f} ms, plain "
+            f"{acquired}, lost {lost}); group 0: kernel {ms:.4f} ms a "
+            f"wrapper call ({dms:.4f} replayed from a CUDA graph), plain "
             f"{pms:.4f} ms"
+            + (f"; parent kernel (also = plain) {old_ms[0][0]:.4f} "
+               f"({old_ms[0][1]:.4f}), kernel {ms:.4f} ({dms:.4f}), "
+               f"{again[0]:.4f} ({again[1]:.4f}), parent {old_ms[1][0]:.4f} "
+               f"({old_ms[1][1]:.4f}) ms"
+               if old_ms is not None else "")
             + (f", plain captured in a CUDA graph {gms:.4f} ms"
                if gms is not None else "")
             + f", bound {bms:.4f} ms ({by}, {n_search} searched root-steps "
@@ -1118,6 +1229,9 @@ def main() -> int:
             [g, g, n_last], lo, 4, 3)
         assert acq and lost, (n_rows, acq, lost)
         del powers
+    pb_info = pb.kernel_info()
+    residency("pass-B kernel pb_scan_kernel", pb_info, pb.launch_plan,
+              [(f"B={n}", n) for n in (1, 8, 16, 32, 64, 128, 256)], smi)
 
     # ---- 3b. the Viterbi kernel against its plain version ----
     from ltetrigger_tpu_torch.ltecore import coding
@@ -1135,28 +1249,67 @@ def main() -> int:
             x = torch.from_numpy(llr.astype(np.float32)).to(dev)
             kb, km = vk.viterbi_decode_wa_kernel(x)
             pbits, pm = viterbi.viterbi_decode_wa(x)
+            mbits, mm = vk.schedule_model(x)
             torch.cuda.synchronize()
             differ = (kb != pbits).any(dim=1)
             tie = near_tie(x)
             assert not (differ & ~tie).any(), \
                 (b, sigma, int((differ & ~tie).sum()))
             torch.testing.assert_close(km, pm, rtol=1e-5, atol=0)
+            assert torch.equal(kb, mbits), (b, sigma, "schedule model")
+            torch.testing.assert_close(km, mm, rtol=1e-5, atol=0)
             err = (km - pm).abs().max().item()
             vit_worst = max(vit_worst, err)
             ok = (kb.cpu().numpy() == sent).all(axis=1).mean()
-            ms = cuda_ms(lambda: vk.viterbi_decode_wa_kernel(x))
+
+            def kern():
+                return vk.viterbi_decode_wa_kernel(x)
+            old_ms = None
+            if parent is not None:      # parent, kernel, kernel, parent
+                def old():
+                    return parent["vit"](x)
+                ob, om = old()
+                torch.cuda.synchronize()
+                old_bad = int((((ob != pbits).any(dim=1)) & ~tie).sum())
+                assert old_bad == 0, (b, sigma, "parent", old_bad)
+                torch.testing.assert_close(om, pm, rtol=1e-5, atol=0)
+                old_ms = [(cuda_ms(old), replay_ms(old))]
+            ms, dms = cuda_ms(kern), replay_ms(kern)
+            if parent is not None:
+                again = (cuda_ms(kern), replay_ms(kern))
+                old_ms.append((cuda_ms(old), replay_ms(old)))
             pms = cuda_ms(lambda: viterbi.viterbi_decode_wa(x), iters=3)
             bms, by = viterbi_bound(b)
             vit_rows[(b, sigma)] = dict(
-                shape=f"B={b} sigma={sigma}", ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=by, max_abs_err=err,
+                shape=f"B={b} sigma={sigma}", ms=ms, replay_ms=dms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err,
                 bits_differ=int(differ.sum()), near_ties=int(tie.sum()))
+            if old_ms is not None:
+                vit_rows[(b, sigma)].update(again=again, parent=old_ms)
             log(f"Viterbi B={b} sigma={sigma}: kernel = plain version "
                 f"({int(differ.sum())} codewords differ, all near-ties; "
-                f"{int(tie.sum())} near-ties), metric max_abs_err {err:.3e}, "
-                f"{ok:.3f} of the blocks decoded; kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
-            del x, kb, km, pbits, pm
+                f"{int(tie.sum())} near-ties), kernel = its schedule in "
+                f"PyTorch bit for bit, metric max_abs_err {err:.3e}, "
+                f"{ok:.3f} of the blocks decoded; kernel {ms:.4f} ms a "
+                f"wrapper call ({dms:.4f} replayed from a CUDA graph), plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms ({by})"
+                + (f"; parent kernel (also = plain, near-ties excepted) "
+                   f"{old_ms[0][0]:.4f} ({old_ms[0][1]:.4f}), kernel "
+                   f"{ms:.4f} ({dms:.4f}), {again[0]:.4f} ({again[1]:.4f}), "
+                   f"parent {old_ms[1][0]:.4f} ({old_ms[1][1]:.4f}) ms"
+                   if old_ms is not None else "") + f" [{smi}]")
+            del x, kb, km, pbits, pm, mbits, mm
+
+    vit_info = vk.kernel_info()
+    residency("Viterbi kernel vit_wa_kernel", vit_info, vk.launch_plan,
+              [("B=48", 48), ("B=73728", 73728)], smi)
+    if only_kernels:    # phases 1-3b alone: no path driven, no success line
+        log(json.dumps({"pass_b": list(pb_rows.values()),
+                        "viterbi": list(vit_rows.values()),
+                        "pb_info": pb_info, "vit_info": vit_info}))
+        log(smi)
+        print(json.dumps({"ok": None, "partial": "kernels"}))
+        return 0
 
     # ---- 4. the main path: search over four rates, then the CLI ----
     captures = []
@@ -2234,6 +2387,7 @@ def main() -> int:
         "launches_by_path": by_path("mf"),
         "max_abs_err": worst,
         "ms": c128["ms"],
+        "replay_ms": c128["replay_ms"],
         "plain_ms": c128["plain_ms"],
         "bound_ms": c128["bound_ms"],
         "bound_by": c128["bound_by"],
@@ -2248,6 +2402,7 @@ def main() -> int:
         "launches_by_path": by_path("pb"),
         "max_abs_err": pb_worst,
         "ms": b128["ms"],
+        "replay_ms": b128["replay_ms"],
         "plain_ms": b128["plain_ms"],
         "graph_ms": b128["graph_ms"],
         "bound_ms": b128["bound_ms"],
@@ -2263,6 +2418,7 @@ def main() -> int:
         "launches_by_path": by_path("vit"),
         "max_abs_err": vit_worst,
         "ms": v73k["ms"],
+        "replay_ms": v73k["replay_ms"],
         "plain_ms": v73k["plain_ms"],
         "bound_ms": v73k["bound_ms"],
         "bound_by": v73k["bound_by"],

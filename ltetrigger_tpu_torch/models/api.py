@@ -68,8 +68,9 @@ def ensure_safe_threshold(t: float) -> float:
 
 def _prepare_buffer(iq: np.ndarray, sample_rate: float,
                     repeat_to: Optional[int] = None,
-                    device="cpu") -> cplx.Pair:
-    """Resample to 1.92 Msps on `device`, loop to `repeat_to` samples, pad
+                    device="cuda") -> cplx.Pair:
+    """Resample to 1.92 Msps on `device` (the card unless the caller asks
+    for the CPU; raises without one), loop to `repeat_to` samples, pad
     LOOKBACK zeros before and WINDOW zeros after.
 
     Integer ratios use the strided-conv decimator; any other rational rate
@@ -79,6 +80,7 @@ def _prepare_buffer(iq: np.ndarray, sample_rate: float,
         raise ValueError(
             f"Sample rate {sample_rate/1e6:.2f} MHz is not a rational "
             "multiple of 1.92 MHz")
+    device = resolve_device(device)
     xp = cplx.from_numpy(np.ascontiguousarray(iq), device)
     if frac.denominator == 1:
         x = resample.decimate(xp, frac.numerator)

@@ -10,16 +10,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 Pair = tuple  # (re, im), matching float32 tensors
 
 
 # ------------------------------------------------------------- boundary ----
-def from_numpy(x: np.ndarray, device="cpu") -> Pair:
+def from_numpy(x: np.ndarray, device="cuda") -> Pair:
+    """numpy complex -> pair on `device` (the card unless the caller asks
+    for the CPU; raises without one)."""
+    dev = resolve_device(device)
     x = np.asarray(x)
     return (torch.from_numpy(np.ascontiguousarray(x.real, np.float32))
-            .to(device),
+            .to(dev),
             torch.from_numpy(np.ascontiguousarray(x.imag, np.float32))
-            .to(device))
+            .to(dev))
 
 
 def to_numpy(p: Pair) -> np.ndarray:
@@ -81,9 +86,11 @@ def expi(theta: torch.Tensor) -> Pair:
     return (torch.cos(theta), torch.sin(theta))
 
 
-def zeros(shape, device="cpu") -> Pair:
-    return (torch.zeros(shape, device=device),
-            torch.zeros(shape, device=device))
+def zeros(shape, device="cuda") -> Pair:
+    """A pair of zeros on `device` (the card unless the caller asks for the
+    CPU; raises without one)."""
+    dev = resolve_device(device)
+    return (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
 
 
 def where(c, a: Pair, b: Pair) -> Pair:

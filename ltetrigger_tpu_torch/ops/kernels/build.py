@@ -1,10 +1,11 @@
 """First-use build of the port's CUDA kernels (ltetrigger_tpu_torch/csrc).
 
-Every `csrc/*.cu` is compiled by its own nvcc process, all started at once,
-and the objects are linked into one shared library with a plain C interface
-under ltetrigger_tpu_torch/_build/, named by a hash of the sources and the
-flags.  `library()` loads it with ctypes once per process; each kernel's
-wrapper module declares the argument types of its own entry point.
+Every `csrc/*.cu` (with the `csrc/*.cuh` it includes) is compiled by its
+own nvcc process, all started at once, and the objects are linked into one
+shared library with a plain C interface under ltetrigger_tpu_torch/_build/,
+named by a hash of the sources, the headers and the flags.  `library()`
+loads it with ctypes once per process; each kernel's wrapper module
+declares the argument types of its own entry point.
 
 Several processes (the ranks of a mesh) may reach first use at once: each
 compiles into a temporary directory of its own and renames the library into
@@ -44,32 +45,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
-    """Where the library of the sources in `csrc` lives: its name carries a
-    hash of every source's name and bytes and of the flags, so any edit or
-    added source names a new library."""
+def library_path(csrc: pathlib.Path = CSRC, out_dir: pathlib.Path = BUILD_DIR,
+                 extra_flags: tuple = ()) -> pathlib.Path:
+    """Where the library of the sources in `csrc`, compiled with
+    NVCC_FLAGS + `extra_flags`, lives under `out_dir`: its name carries a
+    hash of every source's and header's name and bytes and of the flags, so
+    any edit, added file or flag names a new library."""
     h = hashlib.sha256()
-    for s in sorted(csrc.glob("*.cu")):
+    for s in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libltetrigger_kernels_{h.hexdigest()[:16]}.so"
+    h.update(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
+    return out_dir / f"libltetrigger_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[pathlib.Path, float]:
-    """Compile csrc/*.cu into one shared library (cached by source hash).
+def build(out_dir: pathlib.Path = BUILD_DIR,
+          extra_flags: tuple = ()) -> tuple[pathlib.Path, float]:
+    """Compile csrc/*.cu with NVCC_FLAGS + `extra_flags` into one shared
+    library under `out_dir` (cached by source hash).  The defaults build
+    the port's own kernels; a tool that builds an instrumented variant
+    (-D flags) passes its own directory and flags.
 
     returns (library path, seconds spent compiling; 0.0 on a cache hit)."""
-    lib = library_path()
+    lib = library_path(CSRC, out_dir, extra_flags)
     if lib.exists():
         return lib, 0.0
     srcs = sorted(CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [*NVCC_FLAGS, *extra_flags]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [pathlib.Path(tmp) / f"{s.stem}.o" for s in srcs]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+        procs = [subprocess.Popen([nvcc, *flags, "-c", str(s), "-o",
                                    str(o)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
@@ -100,6 +108,20 @@ def library() -> ctypes.CDLL:
         path, _ = build()
         _lib = ctypes.CDLL(str(path))
     return _lib
+
+
+def kernel_info(entry: str) -> dict:
+    """What the card holds of one kernel, from its library's `entry`
+    (`int entry(int out[4])`): registers a thread, local (spill) bytes a
+    thread, static shared memory a block, blocks resident a SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card)."""
+    fn = getattr(library(), entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int * 4)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(fn(ctypes.byref(out)), entry)
+    return dict(zip(("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    out))
 
 
 def check(rc: int, what: str) -> None:

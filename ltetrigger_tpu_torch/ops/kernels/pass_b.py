@@ -26,6 +26,7 @@ updates nothing in place.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -38,6 +39,9 @@ from . import build
 R = correlate.N_ROOTS
 launches = 0          # kernel launches
 _fn = None
+
+THREADS = 320         # pass_b.cu: a block per (channel, root)
+BLOCKS_PER_SM = 3     # its __launch_bounds__
 
 
 # ------------------------------------------------------------ plain version
@@ -144,13 +148,41 @@ class _Args(ctypes.Structure):
                                                   "beta")])
 
 
+def launch_plan(b: int, sms: int = 132) -> dict:
+    """The kernel's launch for b channels (3 b lanes): one block of 320
+    threads per (channel, root), no cluster; static shared memory a block
+    (one step's power staged, 9600 floats; the 131-bin window; the PSR
+    ring; the ten warps' maxima; three mbarriers); blocks resident a SM as
+    __launch_bounds__ asks; waves over `sms` SMs."""
+    blocks = R * b
+    warps = THREADS // 32
+    smem = 4 * (correlate.NBLK * SYMBOL_SZ + 132 + MOVING_AVG_SZ
+                + 3 * warps) + 8 * 3
+    return dict(blocks=blocks, threads=THREADS, cluster=1, smem_bytes=smem,
+                blocks_per_sm=BLOCKS_PER_SM,
+                waves=math.ceil(blocks / (BLOCKS_PER_SM * sms)))
+
+
+def kernel_info() -> dict:
+    """The compiled kernel on the current card: registers a thread, local
+    (spill) bytes a thread, static shared memory a block, and blocks
+    resident a SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return build.kernel_info("pb_kernel_info")
+
+
+def bind(lib: ctypes.CDLL):
+    """`lib`'s pb_scan_group with its argument types declared: the port's
+    library, or a variant of it that `build.build` made."""
+    fn = lib.pb_scan_group
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _load():
     global _fn
     if _fn is None:
-        fn = build.library().pb_scan_group
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = bind(build.library())
     return _fn
 
 
@@ -190,6 +222,8 @@ def scan_group_kernel(state, power: torch.Tensor, grid0: int,
                              f"kernel takes {dt} on {dev}")
         ins[f] = x.contiguous()
     power = power.contiguous()
+    if power.data_ptr() % 16:         # the kernel's tensor map needs it
+        power = power.clone()
     outs = {f: torch.empty_like(x) for f, x in ins.items()}
     rows = tuple(torch.empty((g,) + tuple(batch) + (R,), dtype=dt, device=dev)
                  for dt in _ROW_DTYPES)

@@ -91,7 +91,7 @@ def _pairs():
     rng = np.random.default_rng(5)
     x = (rng.normal(size=(3, 4, 5)) + 1j * rng.normal(size=(3, 4, 5))) \
         .astype(np.complex64)
-    return x, jcplx.from_numpy(x), cplx.from_numpy(x)
+    return x, jcplx.from_numpy(x), cplx.from_numpy(x, device="cpu")
 
 
 @pytest.mark.parametrize("what", ["to_numpy", "neg", "sum_all", "sum_dim",

@@ -38,6 +38,7 @@ import bench_attrib_torch  # noqa: E402
 import bench_stream_torch  # noqa: E402
 import bench_sweep_torch  # noqa: E402
 import make_snr_curve_torch  # noqa: E402
+import pass_b_stamps_torch  # noqa: E402
 import seam_sweep_torch  # noqa: E402
 
 # imported in a fresh interpreter: any module of these packages is a fault
@@ -250,9 +251,45 @@ def test_snr_curve_markdown(combine_wins):
     assert "Device: cpu." in text and "Knee: combine **-27.0 dB**" in text
 
 
+# ------------------------------------------------------- pass-B stamps --
+def test_stamp_phases():
+    """examples/pass_b_stamps_torch.py: the stamps of a searched step split
+    into its five phases and the gap to the next step; an unsearched step
+    (phases 1-4 unset) into one span and the gap; the seeded power carries
+    its peak in root 0 at bin 4000 while strong."""
+    stamps = pass_b_stamps_torch
+    st = np.zeros((3, 6), np.uint64)
+    st[0] = [100, 400, 450, 900, 1400, 1600]
+    st[1] = [1800, 0, 0, 0, 0, 1900]
+    st[2] = [2100, 2500, 2600, 3000, 3500, 3700]
+    rows = stamps.phases(st, 3)
+    assert rows[0] == (0, True, [300, 50, 450, 500, 200, 200])
+    assert rows[1] == (1, False, [100, 200])
+    assert rows[2] == (2, True, [400, 100, 400, 500, 200, -1])
+    p = stamps.seeded_power(2, 3, 1, "cpu")
+    assert tuple(p.shape) == (2, 3, 75, 3, 128)
+    flat = p.permute(0, 1, 3, 2, 4).reshape(2, 3, 3, 9600)
+    assert (flat[:, 0, 0].argmax(-1) == 4000).all()
+    assert (flat[:, 1:, 0].amax(-1) < 60).all()
+
+
+def test_stamp_block_spans():
+    """examples/pass_b_stamps_torch.py: each block's entry, prologue, loop
+    and carry-out stamps become its three spans; the entries' spread and
+    the kernel's span run from the first entry to the last carry-out."""
+    blocks = np.array([[1000, 1300, 5300, 5400],
+                       [1200, 1450, 5900, 6100],
+                       [1100, 1400, 5000, 5050]], np.uint64)
+    got = pass_b_stamps_torch.block_spans(blocks)
+    assert got["spans"].tolist() == [[300, 4000, 100], [250, 4450, 200],
+                                     [300, 3600, 50]]
+    assert got["entry_spread"] == 200
+    assert got["span"] == 5100
+
+
 # ------------------------------------------- imports and the device rule --
 MODULES = ("bench_sweep_torch", "bench_attrib_torch", "bench_stream_torch",
-           "seam_sweep_torch", "make_snr_curve_torch")
+           "seam_sweep_torch", "make_snr_curve_torch", "pass_b_stamps_torch")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -278,7 +315,8 @@ print("ok")
     ("bench_attrib_torch", ["decode"]),
     ("bench_stream_torch", ["0.1"]),
     ("seam_sweep_torch", ["--trials", "1"]),
-    ("make_snr_curve_torch", ["--trials", "1"])])
+    ("make_snr_curve_torch", ["--trials", "1"]),
+    ("pass_b_stamps_torch", ["--steps", "4"])])
 def test_device_cuda_raises_without_a_card(module, argv, tmp_path):
     assert not torch.cuda.is_available()
     main = sys.modules[module].main

@@ -206,6 +206,22 @@ def test_idle_rows():
     assert not rows[6].any()
 
 
+@pytest.mark.parametrize("batch", [1, 8, 16, 32, 64, 128])
+def test_launch_plan(batch):
+    """A block of 320 threads per (channel, root), no cluster; 3 blocks a
+    SM in 228 KB of shared memory (1 KB each kept by the card) and in the
+    register file at __launch_bounds__(320, 3): every batch up to 128
+    channels (384 blocks) in one wave on 132 SMs; 256 channels in two."""
+    plan = pass_b.launch_plan(batch)
+    assert (plan["blocks"], plan["threads"], plan["cluster"]) == (
+        3 * batch, 320, 1)
+    assert plan["waves"] == 1 and plan["blocks_per_sm"] == 3
+    assert 38400 < plan["smem_bytes"] <= 48 * 1024
+    assert 3 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+    assert 3 * plan["threads"] * 64 <= 65536
+    assert pass_b.launch_plan(256)["waves"] == 2
+
+
 # ------------------------------------------------- on a card (marker cuda) --
 @pytest.fixture
 def cuda_device():
@@ -216,7 +232,9 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,g,n_active", [((8,), 32, 32), ((1,), 32, 20),
-                                              ((), 5, 5), ((16,), 32, 32)])
+                                              ((), 5, 5), ((16,), 32, 32),
+                                              ((1,), 32, 32), ((16,), 32, 11),
+                                              ((128,), 25, 25)])
 def test_kernel_matches_plain_on_card(cuda_device, batch, g, n_active):
     """The kernel against scan_group_plain on the card, over three groups
     (acquisition, loss, reacquisition): integers exact, EMA bit for bit."""
@@ -235,3 +253,11 @@ def test_kernel_matches_plain_on_card(cuda_device, batch, g, n_active):
             assert x.dtype == y.dtype and torch.equal(x, y), i
         for f in trig.TriggerState._fields:
             assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+
+
+@pytest.mark.cuda
+def test_kernel_info_on_card(cuda_device):
+    """The card holds the launch plan's 3 blocks a SM: a 128-channel group
+    in one wave."""
+    info = pass_b.kernel_info()
+    assert info["blocks_per_sm"] >= pass_b.BLOCKS_PER_SM, info

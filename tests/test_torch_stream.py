@@ -256,7 +256,7 @@ def test_cfo_bin_probe_matches_jax():
     rx = offset(frames(200, 2, nof_prb_field=50), 1.3)
     jbuf = japi._prepare_buffer(rx, 1.92e6)
     ref_bin, ref_psr = japi._cfo_bin_probe(jbuf, 2)
-    buf = api._prepare_buffer(rx, 1.92e6)
+    buf = api._prepare_buffer(rx, 1.92e6, device="cpu")
     got_bin, got_psr = api._cfo_bin_probe(buf, 2)
     assert int(got_bin) == int(ref_bin) == 3
     np.testing.assert_allclose(got_psr.numpy(), np.asarray(ref_psr),
