@@ -45,6 +45,17 @@ Phases, in order; any failure exits non-zero:
      package of its own, whose wrappers and build.py build and launch its
      kernels; they are held to the same plain versions and timed beside
      the kernels on the same inputs, parent, kernel, kernel, parent;
+ 3c. the TTI-chain kernel (csrc/tti_chain.cu) against its plain version
+     (`tti_chain_plain`) at C=128 x 3 lanes x K=16 and at 1 x 3 lanes x
+     K = 4 and 32, seeded LLRs with signed zeros, fresh restarts, cell-id
+     changes, invalid tail slots, combine True and False: accs, qs, the
+     accumulator, n and cell bit for bit; the same times, bound (bytes:
+     each slot's LLRs read and the accumulator written once) and residency
+     line as 3a/3b;
+ 3d. the CFO-ring kernel (csrc/cfo_ring.cu) against its plain version
+     (`ring_scan_plain`) at 48 lanes x S = 201 and 400: ring and count
+     exact, the mean within atol 1e-5 subcarriers; times, the bound (bytes
+     and adds) beside the S-step chain's latency floor, residency;
   4. the main path: `search(device="cuda")` over 1 s of four synthetic cells
      at 1.92 / 7.68 / 15.36 / 30.72 Msps, then the CLI on a capture file,
      with the three kernels' launch counts set to 0 before them and read
@@ -78,6 +89,13 @@ Phases, in order; any failure exits non-zero:
      against the same code on the CPU; CUDA-event time, wide samples/s;
  11. `wideband_scan` of that band, three synthetic cells at three of the 16
      centres: exactly those three detected, cell id and PRB right;
+ 11b. `wideband_scan(seconds=2.0)` of the same band made 2 s long: one
+     dispatch of 16 channels x 400 steps, past the 200-slot ring, so the
+     CFO-ring kernel runs on every channel beside the other four: exactly
+     the planted cells and fields, its wall time (best of 3); the ring
+     kernel's launch on that dispatch's own est / push / lost (captured by
+     wrapping the module's kernel function) equals `ring_scan_plain` on
+     them (ring and count exact, the mean within atol 1e-5);
  12. `WidebandTrigger(15.36 Msps, 8 centres)`, 2 s, eight 50-PRB cells: f32
      events equal the CPU run's (the CPU runs the first 0.6 s) and equal the
      card's `MultiTrigger(8)` fed the one-shot channelizer's rows; i8 and i4
@@ -150,14 +168,18 @@ Phases, in order; any failure exits non-zero:
      module from a file outside its own directory.
 
 Nothing of phases 1-21 was cut to make room for the later ones.
-`python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3b alone
+`python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3d alone
 and ends with {"ok": null, "partial": "kernels"}: it drives no path.
 
-Every path is driven with the three kernels' launch counts (matched filter
-"mf", pass B "pb", Viterbi "vit") set to 0 just before it and read just
-after; the paths that run in other processes (the example tools' groups and
-seam sweep) report the matched filter's count only.  The line before the
-last is the kernels' JSON record; the last line is
+Every path is driven with the five kernels' launch counts (matched filter
+"mf", pass B "pb", TTI chain "tti", Viterbi "vit", CFO ring "ring") set to
+0 just before it and read just after; each must have launched the first
+four, the TTI chain exactly as often as the Viterbi (one of each a decoding
+dispatch), and the CFO ring on phase 11b's path alone (the only dispatch
+past 200 steps); the paths that run in other processes (the example tools'
+groups and seam sweep) report the matched filter's count only, and the
+attribution tool's `decode` / `micro` stages launch the Viterbi alone.  The
+line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -203,7 +225,8 @@ def log(*a):
 
 class Counts(dict):
     """Kernel launches by kernel: "mf" (matched filter), "pb" (pass B),
-    "vit" (Viterbi); counts add key by key."""
+    "tti" (TTI chain), "vit" (Viterbi), "ring" (CFO ring); counts add key
+    by key."""
 
     def __add__(self, other):
         return Counts({k: self.get(k, 0) + other.get(k, 0)
@@ -216,12 +239,26 @@ class Counts(dict):
         return " / ".join(f"{self.get(k, 0)} {k}" for k in KERNELS)
 
 
-KERNELS = ("mf", "pb", "vit")
+KERNELS = ("mf", "pb", "tti", "vit", "ring")
+# the kernels every path launches; "ring" runs only past 200 steps
+PATH_KERNELS = ("mf", "pb", "tti", "vit")
+LONG_PATH = "wideband_scan 2 s"     # phase 11b: the one such dispatch
 
 
 def kernel_modules() -> dict:
-    from ltetrigger_tpu_torch.ops.kernels import matched_filter, pass_b, viterbi
-    return {"mf": matched_filter, "pb": pass_b, "vit": viterbi}
+    from ltetrigger_tpu_torch.ops.kernels import (cfo_ring, matched_filter,
+                                                  pass_b, tti_chain, viterbi)
+    return {"mf": matched_filter, "pb": pass_b, "tti": tti_chain,
+            "vit": viterbi, "ring": cfo_ring}
+
+
+def ran(n: dict, long: bool = False) -> bool:
+    """A path's launches `n`: every kernel of PATH_KERNELS launched, the TTI
+    chain as often as the Viterbi, and the CFO ring where (and only where)
+    a dispatch ran past 200 steps (`long`)."""
+    return (all(n.get(k, 0) for k in PATH_KERNELS)
+            and n.get("tti", 0) == n.get("vit", 0)
+            and (n.get("ring", 0) > 0) == long)
 
 
 def reset_launches() -> None:
@@ -290,7 +327,7 @@ def operand(buf, lo: int, m: int) -> torch.Tensor:
 def kernel_label(mangled: str) -> str:
     """A kernel's name from its mangled one (every kernel of csrc/ is named
     <prefix>_..._kernel), with a template's arguments up to their end."""
-    m = re.search(r"(?:mf|pb|vit)_\w*?kernel", mangled)
+    m = re.search(r"(?:mf|pb|vit|tti|ring)_\w*?kernel", mangled)
     if not m:
         return mangled
     rest = mangled[m.end():]
@@ -310,9 +347,9 @@ def enqueue_us(fn, reps: int = 100) -> float:
     return 1e6 * t / reps
 
 
-def device_kernels(fn, reps: int = 5) -> dict:
-    """Mean device milliseconds per call of `fn`, by device kernel name
-    (torch.profiler)."""
+def profiled(fn, reps: int) -> list:
+    """The device events (kernels and copies, averaged by name) of `reps`
+    calls of `fn` under torch.profiler, after a warm-up call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -321,11 +358,24 @@ def device_kernels(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key] = e.device_time_total / 1e3 / reps
-    return out
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_kernels(fn, reps: int = 5) -> dict:
+    """Mean device milliseconds per call of `fn`, by device kernel name
+    (torch.profiler)."""
+    return {e.key: e.device_time_total / 1e3 / reps
+            for e in profiled(fn, reps)}
+
+
+def device_events(fn) -> tuple[int, float]:
+    """(device kernels and copies, device milliseconds) of one call of `fn`
+    under torch.profiler, after a warm-up call."""
+    dev_ev = profiled(fn, 1)
+    return (sum(e.count for e in dev_ev),
+            sum(e.device_time_total for e in dev_ev) / 1e3)
+
 
 EDGE_BINS = (0, 63, 64, 127, 128, 9535, 9598, 9599)
 
@@ -407,6 +457,75 @@ def vit_branch_ops() -> int:
     ob2, _ = viterbi._radix4_tables()
     signs = {tuple(int(v) for v in row) for row in ob2.reshape(-1, 6)}
     return 12 + len({max(x, tuple(-v for v in x)) for x in signs})
+
+
+def tti_bound(valid: torch.Tensor) -> tuple[float, str]:
+    """Least milliseconds for the TTI chain over `valid` [*L, K]: the LLRs
+    of each slot in use read once, the accumulator after every slot
+    written once, the carry read and written once, the flags and cell ids
+    read and the quarters written once, over the memory rate; one add an
+    element of a slot in use where its phase does not restart (three of
+    the four phases of every slot in use), over the float32 rate of one
+    operation an instruction."""
+    lanes, k = valid[..., 0].numel(), valid.shape[-1]
+    used = int(valid.sum())
+    nbytes = 4 * 1440 * (used + lanes * k + 2 * lanes) \
+        + lanes * (16 + k * (6 + 16))
+    return roofline(used * 3 * 360, nbytes)
+
+
+def ring_bound(count0, push, lost) -> tuple[float, str]:
+    """Least milliseconds for the CFO ring over S steps of L lanes: the
+    ring and count read and written once, est / push / lost read and the
+    means written once, over the memory rate; the mean of each step
+    summing the slots the ring has reached (min(count, 200) values: one
+    add fewer, and a division), over the float32 rate of one operation an
+    instruction.  The counts are replayed on the host from push / lost."""
+    count = count0.reshape(-1).cpu().numpy().astype(np.int64)
+    p = push.reshape(push.shape[0], -1).cpu().numpy()
+    l_ = lost.reshape(lost.shape[0], -1).cpu().numpy()
+    ops = 0
+    for t in range(p.shape[0]):
+        count = np.where(l_[t], 0, count) + p[t]
+        live = np.minimum(count, 200)
+        ops += int(np.where(live > 0, live, 0).sum())
+    lanes, s = count.size, p.shape[0]
+    nbytes = 2 * lanes * (200 * 4 + 4) + s * lanes * (4 + 1 + 1 + 4)
+    return roofline(ops, nbytes)
+
+
+def chain_inputs(lead: tuple, k: int, seed: int, dev):
+    """TTI-chain inputs of lanes `lead` x K slots (as
+    tests/test_torch_tti_chain.py makes them): LLRs with signed zeros among
+    them, fresh restarts (p 0.2), cell ids from a set of two (changes
+    mid-chain), a random prefix of valid slots, n in [0, 9)."""
+    rng = np.random.default_rng(seed)
+    contrib = rng.normal(size=lead + (k, 3, 4, 120)).astype(np.float32)
+    contrib[rng.random(contrib.shape) < 0.01] = -0.0
+    acc0 = rng.normal(size=lead + (3, 4, 120)).astype(np.float32)
+    arrays = (acc0, rng.integers(0, 9, size=lead).astype(np.int32),
+              rng.integers(10, 12, size=lead).astype(np.int32), contrib,
+              rng.random(lead + (k,)) < 0.2,
+              rng.integers(10, 12, size=lead + (k,)).astype(np.int32),
+              np.arange(k) < rng.integers(0, k + 1, size=lead + (1,)))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def ring_inputs(lanes: int, s: int, seed: int, dev):
+    """CFO-ring inputs (as tests/test_torch_cfo_ring.py makes them): counts
+    in [0, 400), a ring of values in the slots they reached, estimates in
+    [-0.5, 0.5) subcarriers, rare losses (p 0.01) and pushes (p 0.8) on
+    the other steps."""
+    rng = np.random.default_rng(seed)
+    count0 = rng.integers(0, 400, size=(lanes,)).astype(np.int32)
+    ring0 = np.where(np.arange(200) < count0[:, None],
+                     rng.uniform(-0.5, 0.5, (lanes, 200)), 0.0)
+    lost = rng.random((s, lanes)) < 0.01
+    arrays = (ring0.astype(np.float32), count0,
+              rng.uniform(-0.5, 0.5, (s, lanes)).astype(np.float32),
+              (rng.random((s, lanes)) < 0.8) & ~lost, lost)
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
 def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
@@ -903,7 +1022,7 @@ def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
     call = max(min(r["scan_call_ms"]) for r in ranks)
     engine = max(min(r["scan_engine_ms"]) for r in ranks)
     full = max(min(r["scan_full_ms"]) for r in ranks)
-    assert all(all(r["scan_launches"].values()) for r in ranks), \
+    assert all(ran(r["scan_launches"]) for r in ranks), \
         [r["scan_launches"] for r in ranks]
     log(f"channel_scan 128 x 100 over ch = {world} ({ranks[0]['backend']}, "
         f"{'one card' if backend == 'gloo' else 'a card a rank'}): gathered "
@@ -1002,6 +1121,8 @@ def main() -> int:
     from ltetrigger_tpu_torch.ops.kernels import matched_filter as mf
     from ltetrigger_tpu_torch.ops.kernels import pass_b as pb
     from ltetrigger_tpu_torch.ops.kernels import viterbi as vk
+    from ltetrigger_tpu_torch.ops.kernels import cfo_ring as rk
+    from ltetrigger_tpu_torch.ops.kernels import tti_chain as tk
     from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
                                                init_distributed, make_mesh,
                                                time_sharded_scan)
@@ -1039,7 +1160,7 @@ def main() -> int:
             n = cards_phase(pathlib.Path(tmp), want, cells_big, one_ms, smi,
                             trig)
         log(smi)
-        ok = bool(n) and all(n.values())
+        ok = bool(n) and ran(n)
         print(json.dumps({"ok": ok, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -1303,10 +1424,92 @@ def main() -> int:
     vit_info = vk.kernel_info()
     residency("Viterbi kernel vit_wa_kernel", vit_info, vk.launch_plan,
               [("B=48", 48), ("B=73728", 73728)], smi)
-    if only_kernels:    # phases 1-3b alone: no path driven, no success line
+
+    # ---- 3c. the TTI-chain kernel against its plain version ----
+    tti_rows = {}
+    for lead, k in (((C_BIG, 3), 16), ((1, 3), 4), ((1, 3), 32)):
+        for combine in (True, False):
+            ins = chain_inputs(lead, k, seed=k + 2 * combine, dev=dev)
+            got = tk.tti_chain_kernel(*ins, combine)
+            ref = tk.tti_chain_plain(*ins, combine)
+            torch.cuda.synchronize()
+            for g, r, what in zip(got, ref, ("accs", "qs", "acc", "n",
+                                             "cell")):
+                assert g.dtype == r.dtype and torch.equal(g, r), \
+                    (lead, k, combine, what)
+            assert torch.equal(torch.signbit(got[0]), torch.signbit(ref[0]))
+            fresh, cells, valid = ins[4], ins[5], ins[6]
+            changes = int((cells[..., 1:] != cells[..., :-1]).sum())
+            label = (f"{lead[0]} x {lead[1]} lanes K={k} "
+                     f"combine={combine}")
+
+            def kern():
+                return tk.tti_chain_kernel(*ins, combine)
+
+            def plain():
+                return tk.tti_chain_plain(*ins, combine)
+            ms, dms = cuda_ms(kern), replay_ms(kern)
+            pms = cuda_ms(plain, iters=3)
+            bms, by = tti_bound(valid)
+            tti_rows[label] = dict(
+                shape=label, ms=ms, replay_ms=dms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                restarts=int(fresh.sum()), cell_changes=changes,
+                invalid=int((~valid).sum()))
+            log(f"TTI chain {label}: kernel = plain version bit for bit "
+                f"(accs, qs, acc, n, cell; {int(fresh.sum())} fresh "
+                f"restarts, {changes} cell-id changes, "
+                f"{int((~valid).sum())} invalid slots); kernel {ms:.4f} ms "
+                f"a wrapper call ({dms:.4f} replayed from a CUDA graph), "
+                f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
+            del ins, got, ref
+    tti_info = tk.kernel_info()
+    residency("TTI-chain kernel tti_chain_kernel", tti_info, tk.launch_plan,
+              [("384 lanes", 384), ("3 lanes", 3)], smi)
+
+    # ---- 3d. the CFO-ring kernel against its plain version ----
+    ring_rows, ring_worst = {}, 0.0
+    for s_ring in (201, 400):
+        ins = ring_inputs(48, s_ring, seed=s_ring, dev=dev)
+        ring_k, count_k, mean_k = rk.ring_scan_kernel(*ins)
+        ring_p, count_p, mean_p = rk.ring_scan_plain(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(ring_k, ring_p) and torch.equal(count_k, count_p)
+        torch.testing.assert_close(mean_k, mean_p, rtol=0, atol=1e-5)
+        err = (mean_k - mean_p).abs().max().item()
+        ring_worst = max(ring_worst, err)
+
+        def kern():
+            return rk.ring_scan_kernel(*ins)
+        one = (ins[0][:1], ins[1][:1],
+               *(x[:, :1].contiguous() for x in ins[2:]))
+        ms, dms = cuda_ms(kern), replay_ms(kern)
+        chain_ms = replay_ms(lambda: rk.ring_scan_kernel(*one))
+        pms = cuda_ms(lambda: rk.ring_scan_plain(*ins), iters=3)
+        bms, by = ring_bound(ins[1], ins[3], ins[4])
+        label = f"48 lanes S={s_ring}"
+        ring_rows[label] = dict(shape=label, ms=ms, replay_ms=dms,
+                                plain_ms=pms, bound_ms=bms, bound_by=by,
+                                chain_ms=chain_ms, max_abs_err=err,
+                                losses=int(ins[4].sum()))
+        log(f"CFO ring {label}: kernel = plain version (ring and count "
+            f"exact, mean max_abs_err {err:.3e} subcarriers; "
+            f"{int(ins[4].sum())} losses, {int(ins[3].sum())} pushes); "
+            f"kernel {ms:.4f} ms a wrapper call ({dms:.4f} replayed from a "
+            f"CUDA graph), plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+            f"the S-step chain of one lane alone {chain_ms:.4f} ms "
+            f"(replayed) [{smi}]")
+        del ins, one
+    ring_info = rk.kernel_info()
+    residency("CFO-ring kernel ring_scan_kernel", ring_info, rk.launch_plan,
+              [("48 lanes", 48), ("3072 lanes", 3072)], smi)
+    if only_kernels:    # phases 1-3d alone: no path driven, no success line
         log(json.dumps({"pass_b": list(pb_rows.values()),
                         "viterbi": list(vit_rows.values()),
-                        "pb_info": pb_info, "vit_info": vit_info}))
+                        "tti": list(tti_rows.values()),
+                        "ring": list(ring_rows.values()),
+                        "pb_info": pb_info, "vit_info": vit_info,
+                        "tti_info": tti_info, "ring_info": ring_info}))
         log(smi)
         print(json.dumps({"ok": None, "partial": "kernels"}))
         return 0
@@ -1343,7 +1546,7 @@ def main() -> int:
         assert rc == 0 and '"status": "FOUND"' in out.getvalue(), \
             out.getvalue()
         assert json.loads(out.getvalue().split("done.")[1])["cell_id"] == 125
-    assert all(launches.values()), f"a kernel of the main path never " \
+    assert ran(launches), f"a kernel of the main path never " \
         f"launched: {launches}"
     path_launches = {"search and CLI": launches}
     log(f"CLI printed FOUND; the main path launched the kernels {launches} "
@@ -1711,11 +1914,71 @@ def main() -> int:
         recs
     for k, (cid, prb) in planted.items():
         assert (recs[k]["cell_id"], recs[k]["nof_prb"]) == (cid, prb), recs[k]
-    assert all(n_launch.values()), n_launch
+    assert ran(n_launch), n_launch
     path_launches["wideband_scan, snr_sweep, pbch_sweep"] = n_launch
     log(f"wideband_scan 0.25 s x 16 centres: exactly the planted cells "
         f"{ {k: recs[k]['cell_id'] for k in planted} } detected, "
         f"{n_launch} kernel launch(es), {wall * 1e3:.1f} ms wall [{smi}]")
+
+    # ---- 11b. the same band made 2 s long: one dispatch of 400 steps ----
+    band2 = make_band(dev, synth, rate16,
+                      [(centers16[k], cid, prb, 0.0)
+                       for k, (cid, prb) in planted.items()], 2.0, seed=53)
+
+    def scan2():
+        return wscan.wideband_scan(band2, rate16, centers16, seconds=2.0,
+                                   device="cuda")
+    # the warm-up keeps what the ring kernel was given and gave back
+    ring_kernel, seen = rk.ring_scan_kernel, []
+
+    def keep(*a):
+        res = ring_kernel(*a)
+        seen.append((tuple(x.clone() for x in a),
+                     tuple(x.clone() for x in res)))
+        return res
+    rk.ring_scan_kernel = keep
+    try:
+        scan2()
+    finally:
+        rk.ring_scan_kernel = ring_kernel
+    assert len(seen) == 1, len(seen)
+    (ring0_, count0_, est_, push_, lost_), (ring_k, count_k, mean_k) = seen[0]
+    assert tuple(est_.shape) == (400, 16, 3), tuple(est_.shape)
+    ring_p, count_p, mean_p = rk.ring_scan_plain(ring0_, count0_, est_,
+                                                 push_, lost_)
+    torch.cuda.synchronize()
+    assert torch.equal(ring_k, ring_p) and torch.equal(count_k, count_p)
+    torch.testing.assert_close(mean_k, mean_p, rtol=0, atol=1e-5)
+    scan_err = (mean_k - mean_p).abs().max().item()
+    ring_worst = max(ring_worst, scan_err)
+    n_push, n_lost = int(push_.sum()), int(lost_.sum())
+    del seen, ring0_, count0_, est_, push_, lost_, ring_k, count_k, mean_k
+    del ring_p, count_p, mean_p
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs, n_launch, syncs2 = counted(scan2)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    assert [r["detected"] for r in recs] == [k in planted for k in range(16)], \
+        recs
+    for k, (cid, prb) in planted.items():
+        got = tuple(recs[k][f] for f in ("cell_id", "nof_prb", "nof_tx_ports",
+                                          "cp_len", "phich_len",
+                                          "nof_phich_resources"))
+        assert got == (cid, prb, 1, "Normal", "Normal", "1"), recs[k]
+    assert ran(n_launch, long=True) and n_launch["ring"] == 1, n_launch
+    path_launches[LONG_PATH] = n_launch
+    wall2_ms = 1e3 * min(walls)
+    log(f"wideband_scan 2 s x 16 centres (one dispatch of 16 x 400 steps): "
+        f"exactly the planted cells and fields "
+        f"{ {k: recs[k]['cell_id'] for k in planted} }; the ring kernel on "
+        f"the dispatch's own est / push / lost ({n_push} pushes, {n_lost} "
+        f"losses) = ring_scan_plain (ring and count exact, mean "
+        f"max_abs_err {scan_err:.3e}); {n_launch} kernel launch(es), host "
+        f"waits {syncs2}; wall (best of 3) {wall2_ms:.1f} ms: "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} [{smi}]")
 
     # ---- 12. WidebandTrigger: 8 carriers from one 15.36 Msps stream ----
     rate8, centers8 = RATE8, CENTERS8
@@ -1905,7 +2168,7 @@ def main() -> int:
         device="cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    assert len(curve) == 21 and all(n_launch.values()), n_launch
+    assert len(curve) == 21 and ran(n_launch), n_launch
     for rec in curve:
         if rec["snr_db"] >= 0:
             assert rec["prob"] == 1.0 and rec["cell_id"] == 77, rec
@@ -1955,7 +2218,7 @@ def main() -> int:
                 cells = out["cellstore_0"]
                 assert cells and cells[0]["cell_id"] == 123 \
                     and cells[0]["nof_prb"] == 6, out
-                assert all(n_launch.values()), n_launch
+                assert ran(n_launch), n_launch
                 path_launches["run_flowgraph"] += n_launch
                 log(f"run_flowgraph {demo}: cell 123 in the flowgraph's "
                     f"cell store, {n_launch} kernel launches")
@@ -2197,10 +2460,12 @@ def main() -> int:
                 for r in rows_c)
             + (": ABC_decode = scan_engine field for field" if c == C_BIG
                else "") + f" [{smi}]")
+    path_launches["bench_attrib_torch passes"] = read_launches()
+    reset_launches()
     stages, _ = quiet(lambda: attrib.main(["decode", "--channels",
                                            str(C_BIG)]))
     ops, _ = quiet(lambda: attrib.main(["micro", "--channels", str(C_BIG)]))
-    path_launches["bench_attrib_torch passes"] = read_launches()
+    path_launches["bench_attrib_torch decode and micro"] = read_launches()
     log(f"bench_attrib_torch decode C={C_BIG} (host ms / device ms): "
         + "; ".join(f"{r['stage']} x {r['batch']} {r['ms']:.2f} / "
                     f"{r['device_ms']:.2f}" for r in stages)
@@ -2270,14 +2535,22 @@ def main() -> int:
     knees = dict(payload["knee_db"], **payload["pbch_limited"]["knee_db"])
     assert len(knees) == 10 and None not in knees.values(), knees
     path_launches["make_snr_curve_torch"] = read_launches()
-    # every path decoded, so each kernel launched on it; the two tools run
-    # in subprocesses report the matched filter's launches only
+    # every path decoded, so each kernel launched on it (see `ran`); the
+    # two tools run in subprocesses report the matched filter's launches
+    # only, and the attribution tool's stages time the Viterbi alone
     mf_only = ("bench_attrib_torch groups (subprocesses)",
                "seam_sweep_torch (rank 0 of 4)")
     for path, n in path_launches.items():
-        need = ("mf",) if path in mf_only else KERNELS
-        assert all(n.get(k, 0) for k in need), \
-            f"{path}: a kernel never launched: {n}"
+        if path in mf_only:
+            ok = n.get("mf", 0) > 0
+        elif path == "bench_attrib_torch decode and micro":
+            ok = n.get("vit", 0) > 0 and not n.get("tti", 0) \
+                and not n.get("ring", 0)
+        else:
+            ok = ran(n, long=path == LONG_PATH)
+        assert ok, f"{path}: a kernel never launched, or the TTI chain " \
+            f"and Viterbi disagree, or the ring ran where no dispatch " \
+            f"passed 200 steps (or not where one did): {n}"
     log(f"make_snr_curve_torch --trials 2 --step 4: both files written, "
         f"knees (dB) {knees}, {time.perf_counter() - t0:.1f} s, "
         f"{read_launches()} kernel launches [{payload['device']}]")
@@ -2347,12 +2620,21 @@ def main() -> int:
     # the 128 x 100 dispatch on the device's side: busy time by kernel
     parts = device_kernels(dispatch, reps=1)
     busy = sum(parts.values())
+    n_ev, _ = device_events(dispatch)
     log(f"scan_engine C={C_BIG} x {STEPS_BIG} under torch.profiler: "
+        f"{n_ev} device kernels and copies a dispatch, "
         f"{busy:.1f} ms of device time a dispatch against {ms_dispatch:.1f} "
         f"ms of wall time in phase 5 (busy share {busy / ms_dispatch:.2f}); "
         f"the largest: " + ", ".join(
             f"{k[:40]} {v:.1f} ms" for k, v in
             sorted(parts.items(), key=lambda kv: -kv[1])[:6]) + f" [{smi}]")
+
+    # the 2-s band scan of phase 11b on the device's side
+    n_ev, busy = device_events(scan2)
+    log(f"wideband_scan 2 s x 16 centres under torch.profiler: {n_ev} "
+        f"device kernels and copies, {busy:.1f} ms of device time against "
+        f"{wall2_ms:.1f} ms of wall time in phase 11b (busy share "
+        f"{busy / wall2_ms:.2f}) [{smi}]")
 
     # ---- 30. nothing of JAX ----
     bad = [m for m in sys.modules if m.split(".")[0] in
@@ -2372,6 +2654,8 @@ def main() -> int:
     c128 = rows[(f"grid C={C_BIG} g=25", str(torch.bfloat16))]
     b128 = pb_rows[f"C={C_BIG} g=25 (real power)"]
     v73k = vit_rows[(73728, 0.8)]
+    t128 = tti_rows[f"{C_BIG} x 3 lanes K=16 combine=True"]
+    r400 = ring_rows["48 lanes S=400"]
 
     def by_path(k):
         return {path: n.get(k, 0) for path, n in path_launches.items()
@@ -2424,6 +2708,37 @@ def main() -> int:
         "bound_by": v73k["bound_by"],
         "library_ms": None,
         "shapes": list(vit_rows.values()),
+    }, {
+        "name": "tti_chain.tti_chain",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/tti_chain.cu",
+        "replaces": "ltetrigger_tpu/models/trigger.py:879",
+        "launches": sum(by_path("tti").values()),
+        "launches_by_path": by_path("tti"),
+        "max_abs_err": 0.0,
+        "ms": t128["ms"],
+        "replay_ms": t128["replay_ms"],
+        "plain_ms": t128["plain_ms"],
+        "bound_ms": t128["bound_ms"],
+        "bound_by": t128["bound_by"],
+        "library_ms": None,
+        "shapes": list(tti_rows.values()),
+    }, {
+        "name": "cfo_ring.ring_scan",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/cfo_ring.cu",
+        "replaces": "ltetrigger_tpu/models/trigger.py:972",
+        "launches": sum(by_path("ring").values()),
+        "launches_by_path": by_path("ring"),
+        "max_abs_err": ring_worst,
+        "ms": r400["ms"],
+        "replay_ms": r400["replay_ms"],
+        "plain_ms": r400["plain_ms"],
+        "bound_ms": r400["bound_ms"],
+        "bound_by": r400["bound_by"],
+        "chain_ms": r400["chain_ms"],
+        "library_ms": None,
+        "shapes": list(ring_rows.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

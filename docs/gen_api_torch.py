@@ -4,8 +4,9 @@ port, ltetrigger_tpu_torch (docs/gen_api.py renders the JAX package's).
 
 The docstrings are the source of truth; this script renders the public
 functions and classes of the port's counterparts of docs/gen_api.py's
-modules, plus the port's own `ops.kernels.{matched_filter,pass_b,viterbi,
-build}`, `ops.device` and `runtime.native`, into one markdown file.  Deterministic; imports torch and
+modules, plus the port's own `ops.kernels.{matched_filter,pass_b,
+tti_chain,viterbi,cfo_ring,build}`, `ops.device` and `runtime.native`,
+into one markdown file.  Deterministic; imports torch and
 the port, nothing of JAX.
 
 Usage:  python docs/gen_api_torch.py          (writes docs/API_torch.md)
@@ -46,7 +47,9 @@ MODULES = [
     "ltetrigger_tpu_torch.ops.device",
     "ltetrigger_tpu_torch.ops.kernels.matched_filter",
     "ltetrigger_tpu_torch.ops.kernels.pass_b",
+    "ltetrigger_tpu_torch.ops.kernels.tti_chain",
     "ltetrigger_tpu_torch.ops.kernels.viterbi",
+    "ltetrigger_tpu_torch.ops.kernels.cfo_ring",
     "ltetrigger_tpu_torch.ops.kernels.build",
     "ltetrigger_tpu_torch.ltecore.constants",
     "ltetrigger_tpu_torch.ltecore.synth",

@@ -12,9 +12,13 @@ observable contract, in PyTorch's idiom.
           PSR telemetry ring; one launch of the hand-written CUDA kernel per
           group (ops/kernels/pass_b.py).
   pass C  batched over the step axis: slot-0 tail extraction, CFO estimate
-          and ring, CP detect, SSS, MIB capture selection, then one batched
-          PBCH + Viterbi decode of the captured candidates with the 40 ms TTI
-          soft-combining accumulator, and the track/drop event assembly.
+          and ring (past 200 steps one launch of the hand-written CUDA
+          kernel, ops/kernels/cfo_ring.py), CP detect, SSS, MIB capture
+          selection, then one batched PBCH + Viterbi decode of the captured
+          candidates with the 40 ms TTI soft-combining accumulator (one
+          launch each of the hand-written CUDA kernels ops/kernels/
+          tti_chain.py and ops/kernels/viterbi.py), and the track/drop
+          event assembly.
 
 Sample extraction is plain indexing: the JAX package's dense one-hot
 extraction exists only because TPU gathers are slow.  The engine reads the
@@ -54,8 +58,8 @@ from ..ltecore.constants import (DEFAULT_TRACK_AFTER,
 from ..ops import cfo as cfo_ops
 from ..ops import correlate, cplx, dft, pbch, sync
 from ..ops.device import resolve_device
-from ..ops.kernels import matched_filter, pass_b
-from ..ops.kernels.pass_b import ring_push as _ring_push
+from ..ops.kernels import cfo_ring, matched_filter, pass_b, tti_chain
+from ..ops.kernels.cfo_ring import ring_mean as _ring_mean
 
 R = 3                                   # N_id_2 hypotheses
 LOOKBACK = PSS_SYMBOL_START             # 832 samples of history before grid0
@@ -180,11 +184,6 @@ def state_from_numpy(d: dict, device="cuda") -> TriggerState:
 def state_to_numpy(state: TriggerState) -> dict:
     """The port's TriggerState -> {field: numpy array} (host copy)."""
     return {f: getattr(state, f).cpu().numpy() for f in TriggerState._fields}
-
-
-def _ring_mean(ring, count):
-    n = torch.clamp(count, max=MOVING_AVG_SZ)
-    return torch.where(n > 0, ring.sum(dim=-1) / torch.clamp(n, min=1), 0.0)
 
 
 def _read(comp: torch.Tensor, starts: torch.Tensor, length: int,
@@ -423,33 +422,12 @@ def _decode_candidates(state0: TriggerState, buffer: cplx.Pair,
 
     # TTI soft-combining chain over the K slots: 4 TTI-phase hypotheses,
     # phase h restarts its accumulator at quarter 0; a restart (loss or
-    # cell-id change) clears every phase
-    acc = state0.llr_acc.reshape(batch + (R, 3, 4, 120))
-    n, cell = state0.mib_n, state0.mib_cell
-    ar4 = torch.arange(4, device=acc.device)
-    accs, qs = [], []
-    for j in range(k):
-        c_k = contrib[..., j, :, :, :]
-        fresh_k, cell_k, valid_k = (cand_fresh[..., j], cand_cell[..., j],
-                                    valid[..., j])
-        if not combine:
-            fresh_k = torch.ones_like(fresh_k)
-        restart = fresh_k | (cell_k != cell)
-        n_k = torch.where(restart, 0, n)
-        q = torch.remainder(n_k[..., None] + ar4, 4)          # [.., R, 4]
-        sel = torch.take_along_dim(c_k, q[..., None, :, None], dim=-2)
-        acc_base = torch.where(restart[..., None, None, None], 0.0, acc)
-        acc_new = torch.where((q == 0)[..., None, :, None], sel,
-                              acc_base + sel)
-        acc = torch.where(valid_k[..., None, None, None], acc_new, acc)
-        n = torch.where(valid_k, n_k + 1, n)
-        cell = torch.where(valid_k, cell_k, cell)
-        accs.append(acc)
-        qs.append(q)
-
-    accs = torch.stack(accs, dim=-4)                    # [.., R, K, 3, 4, 120]
-    qs = torch.stack(qs, dim=-2)                        # [.., R, K, 4]
-    # hypothesis index port * 4 + phase reports quarter qs[.., phase]
+    # cell-id change) clears every phase (ops/kernels/tti_chain.py)
+    accs, qs, acc, n, cell = tti_chain.tti_chain(
+        state0.llr_acc.reshape(batch + (R, 3, 4, 120)), state0.mib_n,
+        state0.mib_cell, contrib, cand_fresh, cand_cell, valid, combine)
+    # accs [.., R, K, 3, 4, 120], qs [.., R, K, 4]: hypothesis index
+    # port * 4 + phase reports quarter qs[.., phase]
     res = pbch.search_and_unpack(accs.reshape(batch + (R, k, 12, 120)),
                                  qs.tile((1,) * (qs.ndim - 1) + (3,)))
     found = res["found"] & valid
@@ -508,16 +486,9 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
         if s <= MOVING_AVG_SZ:
             ring_f, count_f, cfo_mean = _ring_series(
                 state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
-        else:           # dispatches longer than the ring: sequential
-            ring, count, means = state0.cfo_ring, state0.cfo_count, []
-            for t in range(s):
-                ring = torch.where(raw.lost[t][..., None], 0.0, ring)
-                count = torch.where(raw.lost[t], 0, count)
-                ring = torch.where(push[t][..., None],
-                                   _ring_push(ring, count, est[t]), ring)
-                count = count + push[t].to(torch.int32)
-                means.append(_ring_mean(ring, count))
-            ring_f, count_f, cfo_mean = ring, count, torch.stack(means)
+        else:           # dispatches longer than the ring: step by step
+            ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
+                state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
 
         # ---- rotate, CP detect, SSS ----
         freq = torch.where(raw.tracking, -cfo_mean / SYMBOL_SZ, 0.0)
