@@ -39,23 +39,29 @@ Phases, in order; any failure exits non-zero:
      host calls, `ms`) and the same call captured once in a CUDA graph and
      replayed (no host work, `replay_ms`);
      with `--parent DIR` (DIR holds an earlier tree of the repo whose
-     pass-B and Viterbi entry points have this tree's signatures, e.g. a
-     `git archive` of the parent commit): DIR/ltetrigger_tpu_torch copied
-     into a temporary directory outside the repo and imported there as a
-     package of its own, whose wrappers and build.py build and launch its
-     kernels; they are held to the same plain versions and timed beside
-     the kernels on the same inputs, parent, kernel, kernel, parent;
+     pass-B, Viterbi, TTI-chain and CFO-ring entry points have this
+     tree's signatures, e.g. a `git archive` of the parent commit):
+     DIR/ltetrigger_tpu_torch copied into a temporary directory outside
+     the repo and imported there as a package of its own, whose wrappers
+     and build.py build and launch its kernels; they are held to the same
+     plain versions and timed beside the kernels on the same inputs,
+     parent, kernel, kernel, parent (3a-3d), a wrapper call and replayed;
  3c. the TTI-chain kernel (csrc/tti_chain.cu) against its plain version
-     (`tti_chain_plain`) at C=128 x 3 lanes x K=16 and at 1 x 3 lanes x
+     (`tti_chain_plain`) and its schedule in PyTorch (`schedule_model`)
+     at C=128 x 3 lanes x K=16, 16 x 3 lanes x K=16 and 1 x 3 lanes x
      K = 4 and 32, seeded LLRs with signed zeros, fresh restarts, cell-id
      changes, invalid tail slots, combine True and False: accs, qs, the
      accumulator, n and cell bit for bit; the same times, bound (bytes:
-     each slot's LLRs read and the accumulator written once) and residency
-     line as 3a/3b;
+     the LLRs of each slot in use read and the accumulator after every
+     slot written once) and a residency line for each launch shape (one-
+     and four-warp blocks);
  3d. the CFO-ring kernel (csrc/cfo_ring.cu) against its plain version
-     (`ring_scan_plain`) at 48 lanes x S = 201 and 400: ring and count
-     exact, the mean within atol 1e-5 subcarriers; times, the bound (bytes
-     and adds) beside the S-step chain's latency floor, residency;
+     (`ring_scan_plain`) at 48 lanes x S = 201, 400 and 1000 (5 wraps,
+     several resets) and 3072 lanes x S = 400 (the residency shape, four
+     waves): ring and count exact, the mean within atol 1e-5
+     subcarriers, all three bit for bit its schedule in PyTorch
+     (`schedule_model`); times, the bound (bytes and adds), one lane
+     alone, residency;
   4. the main path: `search(device="cuda")` over 1 s of four synthetic cells
      at 1.92 / 7.68 / 15.36 / 30.72 Msps, then the CLI on a capture file,
      with the three kernels' launch counts set to 0 before them and read
@@ -284,10 +290,13 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def replay_ms(fn, iters: int = 10) -> float:
+def replay_ms(fn, iters: int = 10, calls: int = 1) -> float:
     """Mean device milliseconds a call of `fn` with the host's launch work
-    taken out: `fn` captured once in a CUDA graph (after two warm-ups on a
-    side stream) and the graph replayed (CUDA events)."""
+    taken out: `calls` calls of `fn` captured once in a CUDA graph (after
+    two warm-ups on a side stream) and the graph replayed (CUDA events),
+    over `calls`.  With one call a graph, a launch shorter than the host's
+    graph launch measures that; with many, the launches run back to
+    back."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -296,8 +305,9 @@ def replay_ms(fn, iters: int = 10) -> float:
     torch.cuda.current_stream().wait_stream(side)
     cg = torch.cuda.CUDAGraph()
     with torch.cuda.graph(cg):
-        fn()
-    ms = cuda_ms(cg.replay, iters)
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(cg.replay, iters) / calls
     del cg
     return ms
 
@@ -512,16 +522,16 @@ def chain_inputs(lead: tuple, k: int, seed: int, dev):
                  for a in arrays)
 
 
-def ring_inputs(lanes: int, s: int, seed: int, dev):
+def ring_inputs(lanes: int, s: int, seed: int, dev, lost_p: float = 0.01):
     """CFO-ring inputs (as tests/test_torch_cfo_ring.py makes them): counts
     in [0, 400), a ring of values in the slots they reached, estimates in
-    [-0.5, 0.5) subcarriers, rare losses (p 0.01) and pushes (p 0.8) on
-    the other steps."""
+    [-0.5, 0.5) subcarriers, rare losses (p `lost_p`) and pushes (p 0.8)
+    on the other steps."""
     rng = np.random.default_rng(seed)
     count0 = rng.integers(0, 400, size=(lanes,)).astype(np.int32)
     ring0 = np.where(np.arange(200) < count0[:, None],
                      rng.uniform(-0.5, 0.5, (lanes, 200)), 0.0)
-    lost = rng.random((s, lanes)) < 0.01
+    lost = rng.random((s, lanes)) < lost_p
     arrays = (ring0.astype(np.float32), count0,
               rng.uniform(-0.5, 0.5, (s, lanes)).astype(np.float32),
               (rng.random((s, lanes)) < 0.8) & ~lost, lost)
@@ -538,14 +548,15 @@ def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
 
 
 def parent_kernels(tree: pathlib.Path) -> tuple[dict, float]:
-    """The pass-B and Viterbi wrappers of another tree of the repo (e.g. a
-    `git archive` of the parent commit): tree/ltetrigger_tpu_torch copied
-    into a temporary directory and imported there as a package of its own,
-    `parent_ltetrigger_tpu_torch`, so that its own wrappers pack their own
-    arguments and its own build.py builds its own csrc at first use.  Its
-    entry points have the signatures of this tree's.  returns ({"pb":
-    scan_group_kernel, "vit": viterbi_decode_wa_kernel}, seconds of its
-    build)."""
+    """The pass-B, Viterbi, TTI-chain and CFO-ring wrappers of another tree
+    of the repo (e.g. a `git archive` of the parent commit):
+    tree/ltetrigger_tpu_torch copied into a temporary directory and
+    imported there as a package of its own, `parent_ltetrigger_tpu_torch`,
+    so that its own wrappers pack their own arguments and its own build.py
+    builds its own csrc at first use.  Its entry points have the signatures
+    of this tree's.  returns ({"pb": scan_group_kernel, "vit":
+    viterbi_decode_wa_kernel, "tti": tti_chain_kernel, "ring":
+    ring_scan_kernel}, seconds of its build)."""
     name = "parent_ltetrigger_tpu_torch"
     pkg = pathlib.Path(tempfile.mkdtemp(prefix="parent_kernels_")) / name
     shutil.copytree(tree / "ltetrigger_tpu_torch", pkg,
@@ -558,17 +569,60 @@ def parent_kernels(tree: pathlib.Path) -> tuple[dict, float]:
     build = importlib.import_module(f"{name}.ops.kernels.build")
     pb = importlib.import_module(f"{name}.ops.kernels.pass_b")
     vk = importlib.import_module(f"{name}.ops.kernels.viterbi")
+    tk = importlib.import_module(f"{name}.ops.kernels.tti_chain")
+    rk = importlib.import_module(f"{name}.ops.kernels.cfo_ring")
     t0 = time.perf_counter()
     build.library()
-    return ({"pb": pb.scan_group_kernel, "vit": vk.viterbi_decode_wa_kernel},
+    return ({"pb": pb.scan_group_kernel, "vit": vk.viterbi_decode_wa_kernel,
+             "tti": tk.tti_chain_kernel, "ring": rk.ring_scan_kernel},
             time.perf_counter() - t0)
+
+
+def timed3(fn) -> tuple[float, float, float]:
+    """(a wrapper call, one call a graph replayed, one of 20 calls a graph
+    replayed) in milliseconds; one call a graph over 200 graph launches,
+    since the host's graph launch, ~5 us with a jitter of as much, sets
+    it for a short kernel, 20 calls a graph over 50."""
+    return (cuda_ms(fn), replay_ms(fn, iters=200),
+            replay_ms(fn, iters=50, calls=20))
+
+
+def paired_ms(kern, old=None) -> dict:
+    """`kern` timed by `timed3`: {"ms", "replay_ms", "graph20_ms"}; with
+    `old` (a parent tree's call on the same inputs) in the order parent,
+    kernel, kernel, parent, adding "again" (the kernel's second three) and
+    "parent" (both of the parent's)."""
+    first = timed3(old) if old is not None else None
+    ms, dms, gms = timed3(kern)
+    out = dict(ms=ms, replay_ms=dms, graph20_ms=gms)
+    if old is not None:
+        out["again"] = timed3(kern)
+        out["parent"] = [first, timed3(old)]
+    return out
+
+
+def pairs_text(t: dict) -> str:
+    """`paired_ms`'s times as text: "a [b, c]" (a wrapper call, replayed
+    one call a graph and 20 a graph) and, with a parent, parent / kernel
+    / kernel / parent."""
+    def one(x):
+        return f"{x[0]:.4f} [{x[1]:.4f}, {x[2]:.4f}]"
+    own = (t["ms"], t["replay_ms"], t["graph20_ms"])
+    text = f"kernel {one(own)} ms (a wrapper call [replayed from a CUDA " \
+        f"graph, one call a graph; 20 a graph])"
+    if "parent" not in t:
+        return text
+    return text + (f"; parent / kernel / kernel / parent "
+                   f"{one(t['parent'][0])} / {one(own)} / {one(t['again'])}"
+                   f" / {one(t['parent'][1])} ms")
 
 
 def residency(label: str, info: dict, plan_of, shapes, smi: str) -> None:
     """Print what the card holds of a kernel and each shape's waves, and
-    hold the occupancy API to the launch plan's blocks a SM."""
+    hold the occupancy API to the blocks a SM of the first shape's launch
+    plan (every shape takes the same compiled kernel)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = plan_of(1, sms)
+    plan = plan_of(shapes[0][1], sms)
     per_wave = info["blocks_per_sm"] * sms
     log(f"{label}: {info['regs']} registers a thread, {info['local_bytes']} "
         f"B of local (spill) memory a thread, {info['smem_bytes']} B of "
@@ -1284,10 +1338,7 @@ def main() -> int:
         def plain():
             return pb.scan_group_plain(state0, powers[0], grid0, n_acts[0],
                                        4.0, ta, te)
-        # the wrapper's call (CUDA events over host calls) and the same call
-        # replayed from a CUDA graph (no host work); with a parent tree,
-        # parent, kernel, kernel, parent
-        old_ms = None
+        old = None
         if parent is not None:
             def old():
                 return parent["pb"](state0, powers[0], grid0, n_acts[0], 4.0,
@@ -1298,31 +1349,19 @@ def main() -> int:
             assert all(torch.equal(x, y) for x, y in zip(ro, rp)), label
             assert all(torch.equal(getattr(st_o, f), getattr(st_p, f))
                        for f in trig.TriggerState._fields), label
-            old_ms = [(cuda_ms(old), replay_ms(old))]
-        ms, dms = cuda_ms(kern), replay_ms(kern)
-        if parent is not None:
-            again = (cuda_ms(kern), replay_ms(kern))
-            old_ms.append((cuda_ms(old), replay_ms(old)))
+        t = paired_ms(kern, old)
         pms = cuda_ms(plain, iters=3)
         gms = replay_ms(plain) if graph else None
         lanes = state0.score.numel() // 3
         bms, by = pass_b_bound(lanes, powers[0].shape[-4], n_search)
-        pb_rows[label] = dict(shape=label, ms=ms, replay_ms=dms,
-                              plain_ms=pms, graph_ms=gms, bound_ms=bms,
-                              bound_by=by, max_abs_err=0.0,
+        pb_rows[label] = dict(shape=label, **t, plain_ms=pms, graph_ms=gms,
+                              bound_ms=bms, bound_by=by, max_abs_err=0.0,
                               searched=n_search)
-        if old_ms is not None:
-            pb_rows[label].update(again=again, parent=old_ms)
         log(f"pass B {label}: kernel = plain version over {len(powers)} "
             f"groups (rows and state exact, EMA bit for bit; acquired "
-            f"{acquired}, lost {lost}); group 0: kernel {ms:.4f} ms a "
-            f"wrapper call ({dms:.4f} replayed from a CUDA graph), plain "
-            f"{pms:.4f} ms"
-            + (f"; parent kernel (also = plain) {old_ms[0][0]:.4f} "
-               f"({old_ms[0][1]:.4f}), kernel {ms:.4f} ({dms:.4f}), "
-               f"{again[0]:.4f} ({again[1]:.4f}), parent {old_ms[1][0]:.4f} "
-               f"({old_ms[1][1]:.4f}) ms"
-               if old_ms is not None else "")
+            f"{acquired}, lost {lost})"
+            + ("; the parent's = plain too" if old is not None else "")
+            + f"; group 0: {pairs_text(t)}, plain {pms:.4f} ms"
             + (f", plain captured in a CUDA graph {gms:.4f} ms"
                if gms is not None else "")
             + f", bound {bms:.4f} ms ({by}, {n_search} searched root-steps "
@@ -1385,8 +1424,8 @@ def main() -> int:
 
             def kern():
                 return vk.viterbi_decode_wa_kernel(x)
-            old_ms = None
-            if parent is not None:      # parent, kernel, kernel, parent
+            old = None
+            if parent is not None:
                 def old():
                     return parent["vit"](x)
                 ob, om = old()
@@ -1394,31 +1433,21 @@ def main() -> int:
                 old_bad = int((((ob != pbits).any(dim=1)) & ~tie).sum())
                 assert old_bad == 0, (b, sigma, "parent", old_bad)
                 torch.testing.assert_close(om, pm, rtol=1e-5, atol=0)
-                old_ms = [(cuda_ms(old), replay_ms(old))]
-            ms, dms = cuda_ms(kern), replay_ms(kern)
-            if parent is not None:
-                again = (cuda_ms(kern), replay_ms(kern))
-                old_ms.append((cuda_ms(old), replay_ms(old)))
+            t = paired_ms(kern, old)
             pms = cuda_ms(lambda: viterbi.viterbi_decode_wa(x), iters=3)
             bms, by = viterbi_bound(b)
             vit_rows[(b, sigma)] = dict(
-                shape=f"B={b} sigma={sigma}", ms=ms, replay_ms=dms,
-                plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                shape=f"B={b} sigma={sigma}", **t, plain_ms=pms,
+                bound_ms=bms, bound_by=by, max_abs_err=err,
                 bits_differ=int(differ.sum()), near_ties=int(tie.sum()))
-            if old_ms is not None:
-                vit_rows[(b, sigma)].update(again=again, parent=old_ms)
             log(f"Viterbi B={b} sigma={sigma}: kernel = plain version "
                 f"({int(differ.sum())} codewords differ, all near-ties; "
-                f"{int(tie.sum())} near-ties), kernel = its schedule in "
-                f"PyTorch bit for bit, metric max_abs_err {err:.3e}, "
-                f"{ok:.3f} of the blocks decoded; kernel {ms:.4f} ms a "
-                f"wrapper call ({dms:.4f} replayed from a CUDA graph), plain "
-                f"{pms:.4f} ms, bound {bms:.4f} ms ({by})"
-                + (f"; parent kernel (also = plain, near-ties excepted) "
-                   f"{old_ms[0][0]:.4f} ({old_ms[0][1]:.4f}), kernel "
-                   f"{ms:.4f} ({dms:.4f}), {again[0]:.4f} ({again[1]:.4f}), "
-                   f"parent {old_ms[1][0]:.4f} ({old_ms[1][1]:.4f}) ms"
-                   if old_ms is not None else "") + f" [{smi}]")
+                f"{int(tie.sum())} near-ties)"
+                + ("; the parent's too" if old is not None else "")
+                + f"; kernel = its schedule in PyTorch bit for bit, metric "
+                f"max_abs_err {err:.3e}, {ok:.3f} of the blocks decoded; "
+                f"{pairs_text(t)}, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}) [{smi}]")
             del x, kb, km, pbits, pm, mbits, mm
 
     vit_info = vk.kernel_info()
@@ -1426,80 +1455,111 @@ def main() -> int:
               [("B=48", 48), ("B=73728", 73728)], smi)
 
     # ---- 3c. the TTI-chain kernel against its plain version ----
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one_elem = torch.zeros(1, device=dev)
+    floor = timed3(lambda: one_elem.add_(1.0))
+    log(f"launch floor, one 1-element add: {floor[0]:.4f} ms a call "
+        f"[{floor[1]:.4f} replayed one call a graph, {floor[2]:.4f} one of "
+        f"20 a graph] [{smi}]")
     tti_rows = {}
-    for lead, k in (((C_BIG, 3), 16), ((1, 3), 4), ((1, 3), 32)):
+    for lead, k in (((C_BIG, 3), 16), ((16, 3), 16), ((1, 3), 4),
+                    ((1, 3), 32)):
         for combine in (True, False):
             ins = chain_inputs(lead, k, seed=k + 2 * combine, dev=dev)
             got = tk.tti_chain_kernel(*ins, combine)
             ref = tk.tti_chain_plain(*ins, combine)
+            model = tk.schedule_model(*ins, combine, sms=sms)
             torch.cuda.synchronize()
-            for g, r, what in zip(got, ref, ("accs", "qs", "acc", "n",
-                                             "cell")):
+            for g, r, m, what in zip(got, ref, model, ("accs", "qs", "acc",
+                                                       "n", "cell")):
                 assert g.dtype == r.dtype and torch.equal(g, r), \
                     (lead, k, combine, what)
+                assert torch.equal(g, m), (lead, k, combine, what, "model")
             assert torch.equal(torch.signbit(got[0]), torch.signbit(ref[0]))
+            old = None
+            if parent is not None:
+                def old():
+                    return parent["tti"](*ins, combine)
+                for g, r, what in zip(old(), ref, ("accs", "qs", "acc", "n",
+                                                   "cell")):
+                    assert torch.equal(g, r), (lead, k, "parent", what)
             fresh, cells, valid = ins[4], ins[5], ins[6]
             changes = int((cells[..., 1:] != cells[..., :-1]).sum())
+            plan = tk.launch_plan(lead[0] * lead[1], sms)
             label = (f"{lead[0]} x {lead[1]} lanes K={k} "
                      f"combine={combine}")
-
-            def kern():
-                return tk.tti_chain_kernel(*ins, combine)
-
-            def plain():
-                return tk.tti_chain_plain(*ins, combine)
-            ms, dms = cuda_ms(kern), replay_ms(kern)
-            pms = cuda_ms(plain, iters=3)
+            t = paired_ms(lambda: tk.tti_chain_kernel(*ins, combine), old)
+            pms = cuda_ms(lambda: tk.tti_chain_plain(*ins, combine), iters=3)
             bms, by = tti_bound(valid)
             tti_rows[label] = dict(
-                shape=label, ms=ms, replay_ms=dms, plain_ms=pms,
-                bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                shape=label, **t, plain_ms=pms, bound_ms=bms, bound_by=by,
+                max_abs_err=0.0, blocks=plan["blocks"],
+                threads=plan["threads"], depth=plan["depth"],
                 restarts=int(fresh.sum()), cell_changes=changes,
                 invalid=int((~valid).sum()))
-            log(f"TTI chain {label}: kernel = plain version bit for bit "
-                f"(accs, qs, acc, n, cell; {int(fresh.sum())} fresh "
-                f"restarts, {changes} cell-id changes, "
-                f"{int((~valid).sum())} invalid slots); kernel {ms:.4f} ms "
-                f"a wrapper call ({dms:.4f} replayed from a CUDA graph), "
-                f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
-            del ins, got, ref
-    tti_info = tk.kernel_info()
-    residency("TTI-chain kernel tti_chain_kernel", tti_info, tk.launch_plan,
-              [("384 lanes", 384), ("3 lanes", 3)], smi)
+            log(f"TTI chain {label}: kernel = plain version = its schedule "
+                f"in PyTorch, bit for bit (accs, qs, acc, n, cell; "
+                f"{int(fresh.sum())} fresh restarts, {changes} cell-id "
+                f"changes, {int((~valid).sum())} invalid slots); "
+                f"{plan['blocks']} blocks of {plan['threads']} threads, "
+                f"{plan['depth']} slots in flight; {pairs_text(t)}, plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
+            del ins, got, ref, model
+    tti_info = {n: tk.kernel_info(n, sms) for n in (3, 384)}
+    residency("TTI-chain kernel tti_chain_kernel, one-warp blocks",
+              tti_info[3], tk.launch_plan,
+              [("3 lanes", 3), ("48 lanes", 48), ("88 lanes", 88)], smi)
+    residency("TTI-chain kernel tti_chain_kernel, four-warp blocks",
+              tti_info[384], tk.launch_plan, [("384 lanes", 384)], smi)
 
     # ---- 3d. the CFO-ring kernel against its plain version ----
     ring_rows, ring_worst = {}, 0.0
-    for s_ring in (201, 400):
-        ins = ring_inputs(48, s_ring, seed=s_ring, dev=dev)
+    # S=1000 with losses 10x rarer: about one reset a lane, counts past
+    # 1000 (five wraps of the ring)
+    for lanes, s_ring, lost_p in ((48, 201, 0.01), (48, 400, 0.01),
+                                  (48, 1000, 0.001), (3072, 400, 0.01)):
+        ins = ring_inputs(lanes, s_ring, seed=s_ring, dev=dev, lost_p=lost_p)
         ring_k, count_k, mean_k = rk.ring_scan_kernel(*ins)
         ring_p, count_p, mean_p = rk.ring_scan_plain(*ins)
+        ring_m, count_m, mean_m = rk.schedule_model(*ins)
         torch.cuda.synchronize()
         assert torch.equal(ring_k, ring_p) and torch.equal(count_k, count_p)
         torch.testing.assert_close(mean_k, mean_p, rtol=0, atol=1e-5)
+        assert torch.equal(ring_k, ring_m) and torch.equal(count_k, count_m)
+        assert torch.equal(mean_k, mean_m), (lanes, s_ring, "model")
         err = (mean_k - mean_p).abs().max().item()
         ring_worst = max(ring_worst, err)
-
-        def kern():
-            return rk.ring_scan_kernel(*ins)
+        old = None
+        if parent is not None:
+            def old():
+                return parent["ring"](*ins)
+            o_ring, o_count, o_mean = old()
+            assert torch.equal(o_ring, ring_p) and \
+                torch.equal(o_count, count_p), (lanes, s_ring, "parent")
+            torch.testing.assert_close(o_mean, mean_p, rtol=0, atol=1e-5)
         one = (ins[0][:1], ins[1][:1],
                *(x[:, :1].contiguous() for x in ins[2:]))
-        ms, dms = cuda_ms(kern), replay_ms(kern)
-        chain_ms = replay_ms(lambda: rk.ring_scan_kernel(*one))
-        pms = cuda_ms(lambda: rk.ring_scan_plain(*ins), iters=3)
+        t = paired_ms(lambda: rk.ring_scan_kernel(*ins), old)
+        chain_ms = replay_ms(lambda: rk.ring_scan_kernel(*one), iters=50,
+                             calls=20)
+        pms = cuda_ms(lambda: rk.ring_scan_plain(*ins), iters=3) \
+            if lanes <= 48 else None
         bms, by = ring_bound(ins[1], ins[3], ins[4])
-        label = f"48 lanes S={s_ring}"
-        ring_rows[label] = dict(shape=label, ms=ms, replay_ms=dms,
-                                plain_ms=pms, bound_ms=bms, bound_by=by,
-                                chain_ms=chain_ms, max_abs_err=err,
-                                losses=int(ins[4].sum()))
+        label = f"{lanes} lanes S={s_ring}"
+        wraps = (ins[1].long() + ins[3].long().cumsum(0)
+                 * (ins[4].long().cumsum(0) == 0)).max().item() // 200
+        ring_rows[label] = dict(shape=label, **t, plain_ms=pms,
+                                bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+                                max_abs_err=err, losses=int(ins[4].sum()))
         log(f"CFO ring {label}: kernel = plain version (ring and count "
             f"exact, mean max_abs_err {err:.3e} subcarriers; "
-            f"{int(ins[4].sum())} losses, {int(ins[3].sum())} pushes); "
-            f"kernel {ms:.4f} ms a wrapper call ({dms:.4f} replayed from a "
-            f"CUDA graph), plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
-            f"the S-step chain of one lane alone {chain_ms:.4f} ms "
-            f"(replayed) [{smi}]")
-        del ins, one
+            f"{int(ins[4].sum())} losses, {int(ins[3].sum())} pushes, up "
+            f"to {wraps} wraps before a lane's first loss) = its "
+            f"schedule in PyTorch, bit for bit; {pairs_text(t)}, plain "
+            + (f"{pms:.4f} ms" if pms is not None else "not timed")
+            + f", bound {bms:.5f} ms ({by}); one lane alone {chain_ms:.4f} "
+            f"ms (one of 20 a graph) [{smi}]")
+        del ins, one, ring_m, count_m, mean_m
     ring_info = rk.kernel_info()
     residency("CFO-ring kernel ring_scan_kernel", ring_info, rk.launch_plan,
               [("48 lanes", 48), ("3072 lanes", 3072)], smi)
@@ -1509,7 +1569,8 @@ def main() -> int:
                         "tti": list(tti_rows.values()),
                         "ring": list(ring_rows.values()),
                         "pb_info": pb_info, "vit_info": vit_info,
-                        "tti_info": tti_info, "ring_info": ring_info}))
+                        "tti_info": tti_info, "ring_info": ring_info,
+                        "launch_floor": floor}))
         log(smi)
         print(json.dumps({"ok": None, "partial": "kernels"}))
         return 0

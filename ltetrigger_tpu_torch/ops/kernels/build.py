@@ -110,16 +110,18 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_info(entry: str) -> dict:
+def kernel_info(entry: str, *args: int) -> dict:
     """What the card holds of one kernel, from its library's `entry`
-    (`int entry(int out[4])`): registers a thread, local (spill) bytes a
-    thread, static shared memory a block, blocks resident a SM
+    (`int entry(int out[4], int args...)`, the ints naming a variant):
+    registers a thread, local (spill) bytes a thread, static shared memory
+    a block, blocks resident a SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card)."""
     fn = getattr(library(), entry)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int * 4)]
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int * 4)] \
+        + [ctypes.c_int] * len(args)
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    check(fn(ctypes.byref(out)), entry)
+    check(fn(ctypes.byref(out), *args), entry)
     return dict(zip(("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     out))
 

@@ -17,7 +17,9 @@ design and the bound.  Dispatches of at most 200 steps take the closed form
 On a CPU tensor `ring_scan` runs `ring_scan_plain`; on a CUDA tensor it
 launches the kernel or raises.  `launches` counts kernel launches.  The
 kernel's ring and count equal the plain version's; its mean sums the ring
-in another order.
+in another order.  The kernel's schedule, in PyTorch (`schedule_model`, for
+the tests): the counts by ballots a tile of 32 steps, the slots' walk, the
+tile's sums in the kernel's order.
 """
 
 from __future__ import annotations
@@ -30,13 +32,16 @@ import torch
 from ...ltecore.constants import MOVING_AVG_SZ
 from . import build
 from .pass_b import ring_push
+from .tti_chain import _i32
 
 launches = 0          # kernel launches
 _fn = None
 
-WARPS = 4             # cfo_ring.cu: a warp a lane, 4 lanes a block
-STAGE = 256           # steps staged in shared memory at once
-BLOCKS_PER_SM = 8     # its __launch_bounds__
+SUM_WARPS = 7         # cfo_ring.cu: warps that walk the ring and sum it
+THREADS = 256         # a block a lane: those 7 warps and the scalars' warp
+TILE = 32             # steps a tile (a warp's lanes)
+PITCH = MOVING_AVG_SZ + 4   # floats a row of the [TILE, 204] shared tile
+BLOCKS_PER_SM = 6     # its __launch_bounds__
 
 
 # ------------------------------------------------------------ plain version
@@ -60,17 +65,69 @@ def ring_scan_plain(ring0, count0, est, push, lost):
     return ring, count, torch.stack(means)
 
 
+# ------------------------------------------------------- schedule model --
+def schedule_model(ring0, count0, est, push, lost):
+    """The kernel's order of work in PyTorch (see csrc/cfo_ring.cu): per
+    tile of 32 steps the counts from one warp's ballots (the pushes since
+    the tile's last reset, or the carry plus every push), then each slot
+    walked through the tile into a [32, 200] tile of the ring's contents,
+    then each step's row summed as the kernel sums it (7 warps of 32
+    slots, 4 partial sums each, the partials in order) and divided.
+    returns (ring_f, count_f, mean): ring and count the plain version's,
+    the mean within float32 rounding of it."""
+    lead, s = tuple(count0.shape), est.shape[0]
+    lanes, dev = math.prod(lead), est.device
+    v = ring0.reshape(lanes, MOVING_AVG_SZ)
+    count = count0.reshape(lanes).long()
+    e, p, lo = (x.reshape(s, lanes) for x in (est, push, lost))
+    slots = torch.arange(MOVING_AVG_SZ, device=dev)
+    means = []
+    for t0 in range(0, s, TILE):
+        n = min(TILE, s - t0)
+        pt, lt = p[t0:t0 + n].long(), lo[t0:t0 + n]
+        i = torch.arange(n, device=dev)[:, None]
+        # the scalars' ballots: the last reset at or before step i, pushes
+        # in [that reset, i], else the carry and every push up to i
+        last = torch.cummax(torch.where(lt, i, -1), dim=0).values
+        upto = torch.cumsum(pt, dim=0)
+        at_reset = torch.take_along_dim(upto - pt, last.clamp(min=0), dim=0)
+        after = torch.where(last >= 0, upto - at_reset, count + upto)
+        slot = torch.remainder(_i32(after - pt).long(), MOVING_AVG_SZ)
+        live = torch.clamp(_i32(after), max=MOVING_AVG_SZ)
+        count = after[-1]
+        tile = []
+        for u in range(n):          # the slots' walk through the tile
+            v = torch.where(lt[u][:, None], 0.0, v)
+            v = torch.where(pt[u].bool()[:, None]
+                            & (slot[u][:, None] == slots),
+                            e[t0 + u][:, None], v)
+            tile.append(v)
+        tile = torch.stack(tile)                           # [n, L, 200]
+        total = None
+        for w in range(SUM_WARPS):  # warp w: slots 32w.., 4 partial sums
+            a = [torch.zeros((n, lanes), device=dev) for _ in range(4)]
+            for j in range(32 * w, min(32 * w + 32, MOVING_AVG_SZ), 4):
+                a = [a[c] + tile[..., j + c] for c in range(4)]
+            part = (a[0] + a[1]) + (a[2] + a[3])
+            total = part if total is None else total + part
+        means.append(torch.where(live > 0, total / live.clamp(min=1), 0.0))
+    mean = torch.cat(means) if means else est.new_zeros((0, lanes))
+    return (v.reshape(lead + (MOVING_AVG_SZ,)), _i32(count).reshape(lead),
+            mean.reshape((s,) + lead))
+
+
 # ----------------------------------------------------------------- kernel --
 def launch_plan(lanes: int, sms: int = 132) -> dict:
-    """The kernel's launch for `lanes` lanes: a warp a lane, 4 a block, no
-    cluster; static shared memory a block (each warp 256 staged steps of
-    est and the push / lost flags, 5 bytes a step); blocks resident a SM
-    as __launch_bounds__ asks; waves over `sms` SMs."""
-    blocks = -(-lanes // WARPS)
-    return dict(blocks=blocks, threads=32 * WARPS, cluster=1,
-                smem_bytes=WARPS * STAGE * 5, blocks_per_sm=BLOCKS_PER_SM,
-                waves=math.ceil(blocks / (BLOCKS_PER_SM * sms))
-                if lanes else 0)
+    """The kernel's launch for `lanes` lanes: a block of 256 threads a lane
+    (thread j < 200 walks ring slot j, warp 7 the counts and the means),
+    no cluster; static shared memory a block (the [32, 204] float tile, 7
+    warps' partial sums of 32 steps, two tiles' slots, estimates and reset
+    masks); blocks resident a SM as __launch_bounds__ asks; waves over
+    `sms` SMs."""
+    smem = 4 * (TILE * PITCH + SUM_WARPS * TILE + 2 * 2 * TILE + 2)
+    return dict(blocks=lanes, threads=THREADS, cluster=1,
+                smem_bytes=smem, blocks_per_sm=BLOCKS_PER_SM,
+                waves=math.ceil(lanes / (BLOCKS_PER_SM * sms)))
 
 
 def kernel_info() -> dict:

@@ -2,16 +2,18 @@
 (ops/kernels/cfo_ring.py): the port's `_mib_postpass` at s = 201 and 230
 steps and a 208-step `channel_scan` against the JAX package's (its
 `lax.scan` of `ring_step`); `ring_scan_plain` against the loop it replaced,
-bit for bit, and against the closed form of shorter dispatches; the CPU
-entry is the plain version and pass C reaches it only past 200 steps; the
-launch plan; (marked `cuda`) the kernel against the plain version on a
-card.
+bit for bit, and against the closed form of shorter dispatches; the
+kernel's schedule in PyTorch (`schedule_model`) against the plain version;
+the CPU entry is the plain version and pass C reaches it only past 200
+steps; the launch plan; (marked `cuda`) the kernel against the plain
+version and the schedule on a card.
 
 Tolerances: integers and booleans exact, floats within test_torch_common's
 FLOAT_TOL (the CFO mean and ring atol 1e-4 subcarriers: the two packages
 estimate the CFO in other orders).  On the card the kernel's ring and count
 are exact and its mean, a sum over the ring in another order, within atol
-1e-5 subcarriers.
+1e-5 subcarriers; the schedule in PyTorch sums in the kernel's order, so the
+kernel equals it bit for bit.
 """
 
 import functools
@@ -133,14 +135,15 @@ def _loop(ring0, count0, est, push, lost):
     return ring, count, torch.stack(means)
 
 
-def ring_inputs(lead: tuple, s: int, seed: int, device="cpu"):
+def ring_inputs(lead: tuple, s: int, seed: int, device="cpu",
+                lost_p: float = 0.01):
     """Random ring inputs: counts in [0, 400), a ring of values in the
     slots they reached, estimates in [-0.5, 0.5) subcarriers, rare losses
-    (p 0.01) and pushes (p 0.8) on the other steps (a step that loses
+    (p `lost_p`) and pushes (p 0.8) on the other steps (a step that loses
     tracking pushes nothing)."""
     rng = np.random.default_rng(seed)
     count0 = rng.integers(0, 400, size=lead).astype(np.int32)
-    lost = rng.random((s,) + lead) < 0.01
+    lost = rng.random((s,) + lead) < lost_p
     arrays = (_filled(rng.uniform(-0.5, 0.5, lead + (200,)), count0), count0,
               rng.uniform(-0.5, 0.5, (s,) + lead).astype(np.float32),
               (rng.random((s,) + lead) < 0.8) & ~lost, lost)
@@ -199,11 +202,71 @@ def test_kernel_refuses_cpu_tensors():
         ck.ring_scan_kernel(*ring_inputs((2, 3), 201, seed=0))
 
 
+def near_200(lead: tuple, s: int, seed: int, device="cpu"):
+    """`ring_inputs` with counts in [190, 210): the dispatch's first pushes
+    wrap the ring or fill its last slots."""
+    ring0, count0, *rest = ring_inputs(lead, s, seed)
+    count0 = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        190, 210, size=lead).astype(np.int32))
+    ring0 = torch.from_numpy(_filled(np.random.default_rng(seed + 2).uniform(
+        -0.5, 0.5, lead + (200,)), count0.numpy()))
+    return tuple(x.to(device) for x in (ring0, count0, *rest))
+
+
+def rare_losses(lead: tuple, s: int, seed: int, device="cpu"):
+    """`ring_inputs` with losses 10x rarer (p 0.001): over 1000 steps most
+    lanes wrap the ring four or five times before their first loss."""
+    return ring_inputs(lead, s, seed, device, lost_p=0.001)
+
+
+@pytest.mark.parametrize("make", [ring_inputs, near_200, rare_losses])
+@pytest.mark.parametrize("lead,s", [((2, 3), 201), ((48,), 400),
+                                    ((16, 3), 1000), ((1, 3), 1),
+                                    ((5,), 33)])
+def test_schedule_model_matches_plain(make, lead, s):
+    """The kernel's schedule in PyTorch (ballot counts a tile of 32 steps,
+    the slots' walk, the tile's sums) against the plain version: ring and
+    count exact, the mean within atol 1e-5 subcarriers."""
+    ins = make(lead, s, seed=s)
+    got = ck.schedule_model(*ins)
+    ref = ck.ring_scan_plain(*ins)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[2].dtype == ref[2].dtype
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+    if s >= 400:            # several resets and wraps in one dispatch
+        assert int(ins[4].sum()) >= 3
+    if make is rare_losses and s == 1000:
+        first = torch.where(ins[4].any(0), ins[4].float().argmax(0), s)
+        pushed = (ins[3].cumsum(0) * (torch.arange(s)[:, None, None]
+                                      < first)).amax(0)
+        assert int((ins[1] + pushed).max()) >= 5 * 200
+
+
+def test_schedule_model_takes_any_ring_and_count():
+    """Counts that wrap int32 or start negative, values past the count,
+    a step that loses and pushes: still the plain version."""
+    ring0, count0, est, push, lost = ring_inputs((6,), 300, seed=1)
+    count0 = torch.tensor([2 ** 31 - 50, -7, -400, 0, 199, 2 ** 31 - 1],
+                          dtype=torch.int32)
+    ring0 = torch.from_numpy(np.random.default_rng(2).uniform(
+        -0.5, 0.5, (6, 200)).astype(np.float32))
+    lost[:, [0, 5]] = False             # these two counts wrap int32
+    push = push | lost
+    got = ck.schedule_model(ring0, count0, est, push, lost)
+    ref = ck.ring_scan_plain(ring0, count0, est, push, lost)
+    assert int(ref[1].min()) < 0
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+
+
 def test_launch_plan():
+    """A block of 256 threads a lane, 6 a SM: the 2-s scan's 48 lanes in
+    one wave, 3072 lanes in four."""
     plan = ck.launch_plan(48)
-    assert plan["threads"] == 128 and plan["blocks"] == 12
-    assert plan["blocks_per_sm"] == 8 and plan["waves"] == 1
-    assert plan["smem_bytes"] == 4 * 256 * 5
+    assert plan["threads"] == 256 and plan["blocks"] == 48
+    assert plan["blocks_per_sm"] == 6 and plan["waves"] == 1
+    assert plan["smem_bytes"] == 4 * (32 * 204 + 7 * 32 + 2 * 2 * 32 + 2)
+    assert ck.launch_plan(3072)["waves"] == 4
 
 
 # ------------------------------------------------- on a card (marker cuda) --
@@ -215,16 +278,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("make", [ring_inputs, near_200, rare_losses])
 @pytest.mark.parametrize("lead,s", [((48,), 201), ((16, 3), 400),
-                                    ((5,), 600), ((1, 3), 1)])
-def test_kernel_matches_plain_on_card(cuda_device, lead, s):
-    """Ring and count exact, the mean within atol 1e-5 subcarriers."""
-    ins = ring_inputs(lead, s, seed=s, device=cuda_device)
+                                    ((5,), 600), ((48,), 1000),
+                                    ((1, 3), 1)])
+def test_kernel_matches_plain_on_card(cuda_device, make, lead, s):
+    """Ring and count exact, the mean within atol 1e-5 subcarriers of the
+    plain version; all three equal to the kernel's schedule in PyTorch,
+    which sums in the kernel's order."""
+    ins = make(lead, s, seed=s, device=cuda_device)
     ring, count, mean = ck.ring_scan_kernel(*ins)
     ref = ck.ring_scan_plain(*ins)
+    model = ck.schedule_model(*ins)
     torch.cuda.synchronize()
     assert torch.equal(ring, ref[0]) and torch.equal(count, ref[1])
     torch.testing.assert_close(mean, ref[2], rtol=0, atol=1e-5)
+    assert torch.equal(ring, model[0]) and torch.equal(count, model[1])
+    assert torch.equal(mean, model[2])
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 `_decode_candidates`, which runs it, against the JAX package's (its
 `lax.scan` of `chain`, the gather path: grid0=None) on one synthetic buffer
 and one set of candidates; `tti_chain_plain` against the loop it replaced,
-bit for bit; the CPU entry is the plain version; the launch plan; (marked
-`cuda`) the kernel against the plain version on a card, bit for bit.
+bit for bit; the kernel's schedule in PyTorch (`schedule_model`) against
+the plain version, bit for bit; the CPU entry is the plain version; the
+launch plan; (marked `cuda`) the kernel against the plain version and the
+schedule on a card, bit for bit.
 
 Tolerances: verdicts, MIB fields, `n` and `cell` exact; the accumulator
 within test_torch_common's llr_acc tolerance (atol 1e-6 of its largest
@@ -210,11 +212,52 @@ def test_kernel_refuses_cpu_tensors():
         tk.tti_chain_kernel(*ins, True)
 
 
+@pytest.mark.parametrize("combine", [True, False])
+@pytest.mark.parametrize("lead,k,sms", [((1, 3), 4, 132), ((1, 3), 16, 132),
+                                        ((1, 3), 32, 132), ((16, 3), 4, 132),
+                                        ((16, 3), 16, 132),
+                                        ((16, 3), 32, 132), ((16, 3), 16, 1),
+                                        ((7,), 40, 132), ((7,), 40, 1)])
+def test_schedule_model_matches_plain(lead, k, sms, combine):
+    """The kernel's schedule in PyTorch (lane split, ballots, the valid
+    slots' loads `depth` ahead) against the plain version, bit for bit;
+    sms=1 takes the four-warp launch (4 slots in flight), K=40 two chunks
+    of slot scalars."""
+    ins = chain_inputs(lead, k, seed=k + len(lead) + 2 * combine)
+    got = tk.schedule_model(*ins, combine, sms=sms)
+    ref = tk.tti_chain_plain(*ins, combine)
+    for g, r, what in zip(got, ref, ("accs", "qs", "acc", "n", "cell")):
+        assert g.dtype == r.dtype and torch.equal(g, r), what
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(ref[0]))
+
+
+def test_schedule_model_wraps_the_count_as_int32():
+    """n near 2^31 wraps in both; the quarters follow the low two bits."""
+    ins = list(chain_inputs((4, 3), 20, seed=3))
+    ins[1] = torch.full_like(ins[1], 2 ** 31 - 3)
+    ins[4][:] = False
+    ins[5][:] = ins[2][..., None]
+    ins[6][:] = True
+    got = tk.schedule_model(*ins, True)
+    ref = tk.tti_chain_plain(*ins, True)
+    assert int(ref[3].max()) < 0
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 def test_launch_plan():
+    """One-warp blocks (32 slots in flight) while they fit one wave at 8
+    a SM, four-warp blocks (4 in flight) past it; 12 warps a lane."""
+    plan = tk.launch_plan(3)
+    assert plan["threads"] == 32 and plan["blocks"] == 36
+    assert plan["depth"] == 32 and not plan["wide"] and plan["waves"] == 1
+    assert tk.launch_plan(48)["blocks"] == 576
+    assert not tk.launch_plan(88)["wide"] and tk.launch_plan(89)["wide"]
     plan = tk.launch_plan(384)
-    assert plan["threads"] == 384 and plan["blocks"] == 384
-    assert plan["blocks_per_sm"] == 3 and plan["waves"] == 1
-    assert plan["smem_bytes"] == 288
+    assert plan["wide"] and plan["threads"] == 128 and plan["depth"] == 4
+    assert plan["blocks"] == 1152 and plan["blocks_per_sm"] == 9
+    assert plan["waves"] == 1 and plan["smem_bytes"] == 0
+    assert tk.launch_plan(397)["waves"] == 2
 
 
 # ------------------------------------------------- on a card (marker cuda) --
@@ -227,22 +270,31 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("combine", [True, False])
-@pytest.mark.parametrize("lead,k", [((128, 3), 16), ((1, 3), 4),
-                                    ((1, 3), 32), ((7,), 40)])
+@pytest.mark.parametrize("lead,k", [((128, 3), 16), ((16, 3), 16),
+                                    ((1, 3), 4), ((1, 3), 32), ((7,), 40)])
 def test_kernel_matches_plain_on_card(cuda_device, lead, k, combine):
-    """Bit for bit: accs, qs, the accumulator, n and cell."""
+    """Bit for bit: accs, qs, the accumulator, n and cell, against the
+    plain version and against the kernel's schedule in PyTorch."""
     ins = chain_inputs(lead, k, seed=k, device=cuda_device)
     got = tk.tti_chain_kernel(*ins, combine)
     ref = tk.tti_chain_plain(*ins, combine)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    model = tk.schedule_model(*ins, combine, sms=sms)
     torch.cuda.synchronize()
-    for g, r, what in zip(got, ref, ("accs", "qs", "acc", "n", "cell")):
+    for g, r, m, what in zip(got, ref, model, ("accs", "qs", "acc", "n",
+                                               "cell")):
         assert g.dtype == r.dtype and torch.equal(g, r), what
+        assert torch.equal(g, m), what
     assert torch.equal(torch.signbit(got[0]), torch.signbit(ref[0]))
 
 
 @pytest.mark.cuda
-def test_kernel_info_on_card(cuda_device):
-    info = tk.kernel_info()
+@pytest.mark.parametrize("lanes", [3, 384])
+def test_kernel_info_on_card(cuda_device, lanes):
+    """Both launch shapes: no spill, no shared memory, the blocks a SM
+    their launch plan counts on."""
+    plan = tk.launch_plan(lanes)
+    info = tk.kernel_info(lanes)
     assert info["local_bytes"] == 0, info
-    assert info["blocks_per_sm"] >= tk.launch_plan(1)["blocks_per_sm"], info
-    assert info["smem_bytes"] == tk.launch_plan(1)["smem_bytes"], info
+    assert info["blocks_per_sm"] >= plan["blocks_per_sm"], info
+    assert info["smem_bytes"] == plan["smem_bytes"], info
