@@ -91,6 +91,42 @@ Phases, in order; any failure exits non-zero:
   9. a checkpoint: `save_state` on the card, `load_state` into a fresh
      Trigger, and the continued run publishes what the uninterrupted one
      does;
+ 9a-9e. the long-running monitor (`python3 chip_smoke.py --monitor` runs
+     phases 1, 2 and these alone, then 9d's idle share, and ends with
+     {"ok": null, "partial": "monitor"}):
+ 9a. a soak: one 10-s block of cell 125 (its first second without the
+     cell, under noise 20 dB over it: an interferer) fed 29 times as views,
+     556.8 M samples, through `Trigger(transport="i8", pipeline=2)` in
+     307200-sample calls with REBASE_AT at its real 2^29: the rebase fires
+     once, in-stream; the events are exactly the gap schedule (a track after
+     every gap, a drop in every gap but the first, the same fields), a drop
+     and a track lie within 2 s of stream of the rebase, the cell is tracked
+     at the end; samples/s of wall time, the StageTimer, launches and host
+     syncs a dispatch before and after the rebase, dispatches in flight, the
+     rebasing call's time beside its ten neighbours';
+ 9b. the first 41.8 M samples of that stream one subcarrier off through a
+     Trigger with cfo_search_range=4 (i8, pipeline=0: the upload segments
+     are the stream's alone) with REBASE_AT 2^23 (4 rebases) and 2^29: the
+     same events field for field, bin and telemetry;
+ 9c. `MultiTrigger(8, i4)` and `WidebandTrigger(8 carriers at 15.36 Msps,
+     wide i8)`, 7 blocks of 1.6 s (21.5 M samples a stream), each stream
+     its own cell and its own 0.25-s gap (noise 20 dB over the cell, in its
+     channel), pipeline=0, REBASE_AT 2^21 (10 rebases) and 2^29: the same
+     events stream by stream, every stream tracked at the end, `_wabs` the
+     rebases' deltas; each class's pair is a path of its own for `ran()`;
+ 9d. a producer thread puts 38400-sample chunks of the soak's stream into a
+     queue of 64 at 1.92 Msps of wall time for 10 s; the monitor calls
+     process() when a chunk is there and poll() otherwise, and pulls nothing
+     while `backlog` exceeds 4 dispatches of 32 half-frames: the queue never
+     overflows and the events equal the same samples fed flat-out; the
+     backlog's median / p99 / max in ms and how often the bound held the
+     monitor back (never, where process() returns with only the read-ahead
+     standing); phase 29 paces 3 s more under torch.profiler for the
+     device's idle share;
+ 9e. 144 M samples through `Trigger.process` in 19200-sample calls as
+     fast as this thread makes them, then flush(): the median call of the
+     last decile at most 3x the first's, the cell tracked; the worst call
+     of the second half, the backlog, resident memory, flush()'s drain;
  10. the channelizer: 0.25 s of a 30.72 Msps band to 16 centres on the card
      against the same code on the CPU; CUDA-event time, wide samples/s;
  11. `wideband_scan` of that band, three synthetic cells at three of the 16
@@ -156,11 +192,13 @@ Phases, in order; any failure exits non-zero:
      the same buffer field for field; `decode` and `micro` at C=128 (pass
      C's front end, codeword search and Viterbi; its small stages);
  24. `bench_attrib_torch groups` at C=512 with budgets 4096 and 16384, a
-     subprocess each: g = 5 and 25;
+     subprocess each: g = 5 and 25; every kernel's launches from the
+     subprocesses' JSON (`launches_by_kernel`), held to `ran()`;
  25. `bench_stream_torch`: 0.5 s through a Trigger per transport (f32, i16,
      i8) and through MultiTrigger(8) (i16, i4), cell 123 found in each;
  26. `seam_sweep_torch` on 4 gloo ranks sharing the card, 0 and -30 dB x 2
      trials: P(detect) 1 and 0 for the continuous and the sharded scan;
+     rank 0's launches of every kernel from its JSON, held to `ran()`;
  27. `make_snr_curve_torch --trials 2 --step 4` into a temporary directory:
      both files written, all ten knees present;
  28. the kernel against its plain version at the grid shapes these tools
@@ -183,7 +221,7 @@ Every path is driven with the five kernels' launch counts (matched filter
 four, the TTI chain exactly as often as the Viterbi (one of each a decoding
 dispatch), and the CFO ring on phase 11b's path alone (the only dispatch
 past 200 steps); the paths that run in other processes (the example tools'
-groups and seam sweep) report the matched filter's count only, and the
+groups and seam sweep) report every kernel's count in their JSON, and the
 attribution tool's `decode` / `micro` stages launch the Viterbi alone.  The
 line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -251,13 +289,6 @@ PATH_KERNELS = ("mf", "pb", "tti", "vit")
 LONG_PATH = "wideband_scan 2 s"     # phase 11b: the one such dispatch
 
 
-def kernel_modules() -> dict:
-    from ltetrigger_tpu_torch.ops.kernels import (cfo_ring, matched_filter,
-                                                  pass_b, tti_chain, viterbi)
-    return {"mf": matched_filter, "pb": pass_b, "tti": tti_chain,
-            "vit": viterbi, "ring": cfo_ring}
-
-
 def ran(n: dict, long: bool = False) -> bool:
     """A path's launches `n`: every kernel of PATH_KERNELS launched, the TTI
     chain as often as the Viterbi, and the CFO ring where (and only where)
@@ -268,12 +299,14 @@ def ran(n: dict, long: bool = False) -> bool:
 
 
 def reset_launches() -> None:
-    for m in kernel_modules().values():
+    from ltetrigger_tpu_torch.ops.kernels import modules
+    for m in modules().values():
         m.launches = 0
 
 
 def read_launches() -> Counts:
-    return Counts({k: m.launches for k, m in kernel_modules().items()})
+    from ltetrigger_tpu_torch.ops.kernels import launch_counts
+    return Counts(launch_counts())
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -659,11 +692,14 @@ def upsample(x: np.ndarray, factor: int) -> np.ndarray:
 
 
 def stream_cell(synth, cell_id: int, prb: int, seconds: float, seed: int,
-                cfo_subcarriers: float = 0.0) -> np.ndarray:
+                cfo_subcarriers: float = 0.0, gap=None) -> np.ndarray:
     """`seconds` of one synthetic cell at 1.92 Msps plus seeded noise,
-    optionally offset in frequency by `cfo_subcarriers` x 15 kHz."""
+    optionally offset in frequency by `cfo_subcarriers` x 15 kHz; `gap` =
+    (from s, to s): the cell is absent there and the noise alone remains."""
     x = np.tile(synth.synthesize_frame(cell_id, nof_prb_field=prb),
                 int(round(seconds * 100)))
+    if gap is not None:
+        x[int(round(gap[0] * 1.92e6)):int(round(gap[1] * 1.92e6))] = 0
     if cfo_subcarriers:
         x = x * np.exp(2j * np.pi * cfo_subcarriers / 128.0
                        * np.arange(x.size, dtype=np.float64))
@@ -697,22 +733,24 @@ def feed(trigger, sig: np.ndarray, chunk: int = 19200):
 def make_band(dev, synth, rate: float, cells, seconds: float,
               seed: int) -> np.ndarray:
     """`seconds` of a band at `rate` (complex64, unit rms before the noise):
-    each of `cells` = (centre Hz, cell id, PRB field, start s) is one
-    synthetic frame, interpolated to the band's rate, looped from its start
-    time on and mixed to its centre with a float64 phase; plus seeded noise
-    31 dB under the band.  Made on the card, returned on the host."""
+    each of `cells` = (centre Hz, cell id, PRB field, start s[, stop s]) is
+    one synthetic frame, interpolated to the band's rate, looped and mixed
+    to its centre with a float64 phase, and absent before its start time
+    (or, given a stop time, between the two); plus seeded noise 31 dB under
+    the band.  Made on the card, returned on the host."""
     ratio = int(round(rate / 1.92e6))
     n = int(round(seconds * rate))
     t = torch.arange(n, dtype=torch.float64, device=dev)
     acc = torch.zeros(n, dtype=torch.complex64, device=dev)
-    for center, cid, prb, start_s in cells:
+    for center, cid, prb, *absent in cells:
+        off_from, off_to = absent if len(absent) == 2 else (0.0, absent[0])
         frame = torch.from_numpy(upsample(
             synth.synthesize_frame(cid, nof_prb_field=prb), ratio)).to(dev)
         x = frame.repeat(-(-n // frame.shape[0]))[:n]
         ph = torch.remainder(t * (center / rate), 1.0) * (2 * math.pi)
         rot = torch.complex(torch.cos(ph), torch.sin(ph)).to(torch.complex64)
         x = x * rot
-        x[:int(round(start_s * rate))] = 0
+        x[int(round(off_from * rate)):int(round(off_to * rate))] = 0
         acc += x
         del x, ph, rot
     acc /= acc.abs().square().mean().sqrt()
@@ -821,6 +859,580 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# ======================================================================
+# the long-running monitor (phases 9a-9e)
+# ======================================================================
+RATE1 = 1.92e6
+SOAK_CELL = (125, 50)           # the soak's cell: id, PRB field
+SOAK_BLOCK_S, SOAK_GAP_S = 10.0, 1.0
+SOAK_BLOCKS = 29                # 556.8 M samples: past 2^29 in block 27
+TRANSPARENT_SAMPLES = 136 * 307200      # phase 9b: ~41.8 M, 4 rebases
+MONITOR8_BLOCKS = 7             # phase 9c: 21.5 M samples a stream
+PACED_S = 10.0                  # phase 9d: seconds of real time
+INGEST_SAMPLES = 144_000_000    # phase 9e: 7.5 blocks, ending tracked
+HALF_FRAME = 9600
+
+
+def gapped_stream(synth, cell, seconds: float, gap, seed: int) -> np.ndarray:
+    """`seconds` of `cell` (id, PRB field) at 1.92 Msps in weak noise, with
+    the cell absent during `gap` = (from s, to s) and noise 20 dB above it
+    there instead (an interferer: a tracked cell is dropped within a few
+    searches; weak noise alone takes ~1.7 s to decay the tracked peak)."""
+    x = stream_cell(synth, *cell, seconds, seed=seed, gap=gap)
+    lo, hi = (int(round(g * RATE1)) for g in gap)
+    rng = np.random.default_rng(seed + 1)
+    x[lo:hi] += (10.0 / math.sqrt(2)) * (rng.normal(size=hi - lo)
+                                         + 1j * rng.normal(size=hi - lo))
+    return x
+
+
+def soak_block(synth) -> np.ndarray:
+    """One block of the soak's stream (SOAK_BLOCK_S), fed again and again:
+    SOAK_GAP_S without the cell of SOAK_CELL, then the cell until the block
+    ends."""
+    return gapped_stream(synth, SOAK_CELL, SOAK_BLOCK_S, (0.0, SOAK_GAP_S),
+                         seed=90)
+
+
+def add_bursts(dev, wide: np.ndarray, rate: float, bursts, level: float,
+               seed: int) -> np.ndarray:
+    """`wide` plus, for each (centre Hz, from s, to s) of `bursts`, complex
+    noise of rms `level` over the 1.92 MHz channel at that centre during
+    that time (1.92 Msps noise interpolated to `rate` by FFT zero-padding
+    and mixed to the centre with a float64 phase).  Made on the card."""
+    ratio = int(round(rate / RATE1))
+    x = torch.from_numpy(wide).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for center, a, b in bursts:
+        n0 = int(round(a * rate))
+        m = int(round((b - a) * RATE1))
+        nz = torch.complex(torch.randn(m, generator=g, device=dev),
+                           torch.randn(m, generator=g, device=dev)) \
+            * (level / math.sqrt(2))
+        f = torch.fft.fft(nz.to(torch.complex128))
+        fw = torch.zeros(m * ratio, dtype=torch.complex128, device=dev)
+        fw[:m // 2], fw[-(m // 2):] = f[:m // 2], f[-(m // 2):]
+        n = n0 + torch.arange(m * ratio, dtype=torch.float64, device=dev)
+        ph = torch.remainder(n * (center / rate), 1.0) * (2 * math.pi)
+        x[n0:n0 + m * ratio] += (torch.fft.ifft(fw) * ratio
+                                 * torch.polar(torch.ones_like(ph), ph)) \
+            .to(torch.complex64)
+    return x.cpu().numpy()
+
+
+def blocks_of(block: np.ndarray, n_blocks: int, chunk: int):
+    """The stream `block` repeated `n_blocks` times, as views of `chunk`
+    samples (the last of each block may be shorter)."""
+    for _ in range(n_blocks):
+        for i in range(0, block.size, chunk):
+            yield block[i:i + chunk]
+
+
+def rss_mib() -> float:
+    """This process's resident memory now, MiB (Linux)."""
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def logged_trigger(api, events: list, fed: list, **kw):
+    """A Trigger whose callbacks append (kind, absolute stream position of
+    the drained dispatch, fields or cell id) to `events`: `fed[0]` is the
+    caller's count of samples fed so far, so the position is exact across
+    a rebase."""
+    t = None
+
+    def pos():
+        return fed[0] - t.backlog
+
+    t = api.Trigger(
+        psr_threshold=4,
+        on_track=lambda c: events.append(("track", pos(), fields([c])[0])),
+        on_drop=lambda cid: events.append(("drop", pos(), cid)), **kw)
+    return t
+
+
+def stages_text(t) -> str:
+    return ", ".join(f"{k} {v['mean_ms']:.3f} x {v['count']}"
+                     for k, v in t.timer.summary().items())
+
+
+def dispatches(t) -> int:
+    """A streaming trigger's dispatches so far (its StageTimer's scans)."""
+    return t.timer.summary().get("scan", {}).get("count", 0)
+
+
+def check_schedule(events: list, n_blocks: int, block_s: float,
+                   gap_s: float, cell_id: int, slack_s: float = 0.6):
+    """The soak's events are exactly its gap schedule: the cell tracked
+    after every gap, dropped in every gap but the first (it was never
+    tracked before), each within `slack_s` of stream after the gap's edge;
+    every track carries the same fields."""
+    kinds = [k for k, _, _ in events]
+    assert kinds == ["track"] + ["drop", "track"] * (n_blocks - 1), kinds
+    tracks = [(p, f) for k, p, f in events if k == "track"]
+    drops = [(p, cid) for k, p, cid in events if k == "drop"]
+    assert all(f == tracks[0][1] for _, f in tracks), tracks
+    assert tracks[0][1]["cell_id"] == cell_id, tracks[0]
+    assert all(cid == cell_id for _, cid in drops), drops
+    for b, (p, _) in enumerate(tracks):
+        edge = (b * block_s + gap_s) * RATE1
+        assert edge <= p <= edge + slack_s * RATE1, (b, p, edge)
+    for b, (p, _) in enumerate(drops, start=1):
+        edge = b * block_s * RATE1
+        assert edge <= p <= edge + slack_s * RATE1, (b, p, edge)
+    return tracks, drops
+
+
+def monitor_soak(api, trig, block: np.ndarray, gap_s: float, n_blocks: int,
+                 chunk: int, dev) -> dict:
+    """Phase 9a: `n_blocks` x `block` (its first `gap_s` without the cell)
+    through one i8 Trigger with two dispatches in flight, fed flat-out in
+    `chunk`-sample calls; the int32-guard rebase at the class's real
+    REBASE_AT (2^29) fires in-stream exactly once.  Returns what the phase
+    prints."""
+    events, fed = [], [0]
+    t = logged_trigger(api, events, fed, transport="i8", pipeline=2,
+                       device=dev)
+    calls, rebase = [], None
+    trig.host_syncs.clear()
+    t0 = time.perf_counter()
+    for x in blocks_of(block, n_blocks, chunk):
+        fed[0] += x.size
+        base0 = t._base
+        c0 = time.perf_counter()
+        t.process(x)
+        calls.append(time.perf_counter() - c0)
+        if t._base < base0:
+            assert rebase is None, "a second rebase"
+            rebase = dict(call=len(calls) - 1, fed=fed[0], base=base0,
+                          after=t._base, launches=read_launches(),
+                          syncs=sum(trig.host_syncs.values()),
+                          dispatches=dispatches(t))
+    t.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rebase is not None, "the rebase never fired"
+    assert rebase["base"] >= t.REBASE_AT > rebase["after"] >= 0, rebase
+    assert rebase["fed"] > t.REBASE_AT, rebase
+    tracks, drops = check_schedule(events, n_blocks, block.size / RATE1,
+                                   gap_s, SOAK_CELL[0])
+    near = 2.0 * RATE1
+    assert any(abs(p - rebase["fed"]) <= near for p, _ in tracks) and any(
+        abs(p - rebase["fed"]) <= near for p, _ in drops), \
+        (rebase["fed"], [p for p, _ in tracks], [p for p, _ in drops])
+    assert t.tracking[SOAK_CELL[0] % 3] \
+        and t.cellstore.latest_cell().cell_id == SOAK_CELL[0]
+    launches, syncs, disp = read_launches(), sum(trig.host_syncs.values()), \
+        dispatches(t)
+    i = rebase["call"]
+    around = calls[max(i - 5, 0):i] + calls[i + 1:i + 6]
+    return dict(
+        t=t, fed=fed[0], wall=wall, rebase=rebase, events=events,
+        launches=launches, syncs=syncs, dispatches=disp,
+        per_before={k: v / rebase["dispatches"]
+                    for k, v in rebase["launches"].items()},
+        per_after={k: (launches[k] - rebase["launches"][k])
+                   / (disp - rebase["dispatches"]) for k in launches},
+        syncs_before=rebase["syncs"] / rebase["dispatches"],
+        syncs_after=(syncs - rebase["syncs"]) / (disp - rebase["dispatches"]),
+        rebase_ms=1e3 * calls[i], around_ms=1e3 * np.median(around),
+        around_max_ms=1e3 * max(around),
+        nearest=(min(abs(p - rebase["fed"]) for p, _ in drops) / RATE1,
+                 min(abs(p - rebase["fed"]) for p, _ in tracks) / RATE1))
+
+
+def rebase_pair(make, feed_fn, rebase_at: int) -> tuple:
+    """One stream through two fresh triggers, REBASE_AT lowered to
+    `rebase_at` on the first and left on the second: ((trigger, events)
+    for both, the rebases of the first).  After the flush both stand at
+    the same stream position, so the rebases are the difference of their
+    drained positions over `rebase_at`."""
+    out = []
+    for at in (rebase_at, None):
+        events = []
+        t = make(events)
+        if at is not None:
+            t.REBASE_AT = at
+        for call in feed_fn(t):
+            call()
+        t.flush()
+        out.append((t, events))
+    (low, _), (real, _) = out
+    shift = real._pos_lb - low._pos_lb
+    assert (shift == shift.flat[0]).all() and shift.flat[0] % rebase_at == 0
+    return (*out, int(shift.flat[0]) // rebase_at)
+
+
+def rebase_transparent(api, block: np.ndarray, n_samples: int, chunk: int,
+                       dev, rebase_at: int) -> dict:
+    """Phase 9b: the first `n_samples` of the soak's stream, moved by +2
+    half-subcarriers (one subcarrier), through a Trigger with
+    cfo_search_range=4, with REBASE_AT lowered and not: the same events
+    field for field and the same telemetry.  pipeline=0 and i8: the upload
+    segments, and so the quantisation, are those of the stream alone."""
+    assert chunk % 128 == 0 and block.size % 128 == 0
+    rot = np.exp(2j * np.pi * np.arange(chunk) / 128.0).astype(np.complex64)
+
+    def feed_fn(t):
+        done = 0
+        for x in blocks_of(block, -(-n_samples // block.size), chunk):
+            x = x[:n_samples - done]
+            if not x.size:
+                return
+            done += x.size
+            yield lambda x=x: t.process(x * rot[:x.size])
+
+    def make(events):
+        return api.Trigger(
+            psr_threshold=4, transport="i8", pipeline=0, cfo_search_range=4,
+            device=dev, on_track=lambda c: events.append(("track",
+                                                          fields([c])[0])),
+            on_drop=lambda cid: events.append(("drop", cid)))
+
+    t0 = time.perf_counter()
+    (low, ev_low), (real, ev_real), k_low = rebase_pair(make, feed_fn,
+                                                        rebase_at)
+    wall = time.perf_counter() - t0
+    assert k_low >= 3, k_low
+    assert ev_low == ev_real and ev_real, (ev_low, ev_real)
+    assert int(low._cfo_bins[0]) == int(real._cfo_bins[0]) == 2, \
+        (low._cfo_bins, real._cfo_bins)
+    assert low._base + k_low * rebase_at == real._base
+    for name in ("tracking_score", "tracking", "cap_overflow"):
+        assert (getattr(low, name) == getattr(real, name)).all(), name
+    for name in ("max_psr", "mean_psr", "mean_cfo"):
+        np.testing.assert_allclose(getattr(low, name), getattr(real, name),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    return dict(rebases=k_low, events=ev_real, wall=wall,
+                bins=int(real._cfo_bins[0]))
+
+
+MONITOR8_BLOCK_S = 1.6          # 10 chunks of 307200 at 1.92 Msps
+
+
+def monitor8_gaps(k: int) -> tuple:
+    """Stream k's gap in every 1.6-s block of phase 9c: 0.25 s, later by
+    0.12 s from stream to stream (the last ends 0.41 s before the block)."""
+    return (0.1 + 0.12 * k, 0.35 + 0.12 * k)
+
+
+def rebase_streams(MultiTrigger, WidebandTrigger, synth, dev, n_blocks: int,
+                   rebase_at: int, chunk: int) -> dict:
+    """Phase 9c: `MultiTrigger(8, i4)` and `WidebandTrigger(8 carriers of
+    CENTERS8, wide i8)`, each stream its own cell of CELLS8 with a gap of
+    its own in every 1.6-s block, `n_blocks` blocks, REBASE_AT lowered to
+    `rebase_at` and not: the same events stream by stream, every carrier
+    tracked at the end, the wide stream's `_wabs` the sum of the rebases'
+    deltas.  pipeline=0, as in phase 9b.  Each class's pair runs with the
+    launch counts set to 0 just before it: {"multi" / "wide": (the pair,
+    the rebases, the wall time, its launches)}."""
+    n = len(CELLS8)
+    blocks = np.stack([gapped_stream(synth, cell, MONITOR8_BLOCK_S,
+                                     monitor8_gaps(k), seed=70 + 2 * k)
+                       for k, cell in enumerate(CELLS8)])
+
+    def tagged_log(events):
+        return dict(on_track=lambda s, c: events.append(
+                        (s, "track", fields([c])[0])),
+                    on_drop=lambda s, cid: events.append((s, "drop", cid)))
+
+    def feed_multi(m):
+        for _ in range(n_blocks):
+            for i in range(0, blocks.shape[1], chunk):
+                yield lambda i=i: m.process_all(list(blocks[:, i:i + chunk]))
+
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    pair = rebase_pair(lambda ev: MultiTrigger(
+        n, psr_threshold=4, transport="i4", pipeline=0, device=dev,
+        **tagged_log(ev)), feed_multi, rebase_at)
+    out["multi"] = pair + (time.perf_counter() - t0, read_launches())
+
+    ratio = int(round(RATE8 / RATE1))
+    wide = add_bursts(
+        dev, make_band(dev, synth, RATE8,
+                       [(c, cid, 50, *monitor8_gaps(k)) for k, (c, (cid, _))
+                        in enumerate(zip(CENTERS8, CELLS8))],
+                       MONITOR8_BLOCK_S, seed=79), RATE8,
+        [(c, *monitor8_gaps(k)) for k, c in enumerate(CENTERS8)],
+        10.0 / math.sqrt(n), seed=80)
+    wchunk = chunk * ratio
+
+    def feed_wide_fn(w):
+        for _ in range(n_blocks):
+            for i in range(0, wide.size, wchunk):
+                yield lambda i=i: w.process_wide(wide[i:i + wchunk])
+
+    reset_launches()
+    t0 = time.perf_counter()
+    pair = rebase_pair(lambda ev: WidebandTrigger(
+        RATE8, CENTERS8, transport="i8", psr_threshold=4, pipeline=0,
+        device=dev, **tagged_log(ev)), feed_wide_fn, rebase_at)
+    out["wide"] = pair + (time.perf_counter() - t0, read_launches())
+
+    for key, ((low, ev_low), (real, ev_real), k_low, _, _) in out.items():
+        assert k_low >= 8, (key, k_low)
+        assert ev_low == ev_real, key
+        for s, (cid, _) in enumerate(CELLS8):
+            kinds = [k for st, k, _ in ev_real if st == s]
+            assert kinds[0] == "track" and kinds.count("drop") \
+                >= n_blocks - 1 and kinds[-1] == "track", (key, s, kinds)
+            assert {f["cell_id"] for st, k, f in ev_real
+                    if st == s and k == "track"} == {cid}, (key, s)
+            assert low.tracking[s].any() and real.tracking[s].any(), (key, s)
+        assert (low.tracking_score == real.tracking_score).all(), key
+        np.testing.assert_allclose(low.mean_psr, real.mean_psr, rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+    (low, _), (real, _), k_low, _, _ = out["wide"]
+    assert low._wabs == k_low * rebase_at * ratio and real._wabs == 0, \
+        (low._wabs, k_low)
+    assert low._wbase + low._wabs == real._wbase
+    return out
+
+
+def paced_monitor(api, block: np.ndarray, seconds: float, chunk: int,
+                  dev, limit: int) -> dict:
+    """Phase 9d: a producer thread puts `chunk`-sample views of `block` into
+    a queue of 64 at 1.92 Msps of wall time for `seconds`; this thread
+    calls process() when a chunk is there and poll() otherwise, and pulls
+    nothing while `backlog` exceeds `limit`.  The queue must never
+    overflow.  Returns the trigger, its events, the backlog after every
+    call and the wall time."""
+    import queue
+    import threading
+
+    q = queue.Queue(maxsize=64)
+    overflow, n_chunks = [], int(round(seconds * RATE1)) // chunk
+    assert n_chunks * chunk <= block.size
+
+    def produce():
+        due = time.perf_counter()
+        for k in range(n_chunks):
+            due += chunk / RATE1
+            time.sleep(max(due - time.perf_counter(), 0.0))
+            try:
+                q.put_nowait(k)
+            except queue.Full:
+                overflow.append(k)
+        q.put(None)
+
+    events, fed = [], [0]
+    t = logged_trigger(api, events, fed, transport="i8", pipeline=2,
+                       device=dev)
+    lags, depth, polls, held = [], [], 0, 0
+    producer = threading.Thread(target=produce, daemon=True)
+    t0 = time.perf_counter()
+    producer.start()
+    while True:
+        if t.backlog > limit:
+            t.poll()
+            held += 1
+            continue
+        try:
+            k = q.get(timeout=0.001)
+        except queue.Empty:
+            t.poll()
+            polls += 1
+            continue
+        if k is None:
+            break
+        depth.append(q.qsize())
+        fed[0] += chunk
+        t.process(block[k * chunk:(k + 1) * chunk])
+        lags.append(t.backlog)
+    t.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    producer.join()
+    assert not overflow, f"the queue overflowed at chunks {overflow[:5]}"
+    return dict(t=t, events=events, lags=np.asarray(lags) / RATE1 * 1e3,
+                depth=max(depth), polls=polls, held=held, wall=wall,
+                n=n_chunks * chunk)
+
+
+def flat_out(api, block: np.ndarray, n: int, chunk: int, dev) -> list:
+    """The first `n` samples of `block` through an i8 Trigger in
+    `chunk`-sample calls, then flush(): its events as paced_monitor logs
+    them."""
+    events, fed = [], [0]
+    t = logged_trigger(api, events, fed, transport="i8", pipeline=2,
+                       device=dev)
+    for i in range(0, n, chunk):
+        fed[0] += chunk
+        t.process(block[i:i + chunk])
+    t.flush()
+    return events
+
+
+def unpaced_ingest(api, block: np.ndarray, n_calls: int, chunk: int,
+                   dev) -> dict:
+    """Phase 9e: `n_calls` x `chunk` samples of the soak's stream through
+    Trigger.process as fast as this thread can call it, then one flush():
+    every call's cost, the backlog, the resident memory, the flush's
+    drain."""
+    assert block.size % chunk == 0
+    t = api.Trigger(psr_threshold=4, transport="i8", pipeline=2, device=dev)
+    per = block.size // chunk
+    cost = np.empty(n_calls)
+    backlog_max, rss0 = 0, rss_mib()
+    t0 = time.perf_counter()
+    for k in range(n_calls):
+        i = (k % per) * chunk
+        c0 = time.perf_counter()
+        t.process(block[i:i + chunk])
+        cost[k] = time.perf_counter() - c0
+        if k % 64 == 0:
+            backlog_max = max(backlog_max, t.backlog)
+    ingest = time.perf_counter() - t0
+    standing, rss1 = t.backlog, rss_mib()
+    f0 = time.perf_counter()
+    t.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    flush_s = time.perf_counter() - f0
+    d = n_calls // 10
+    first, last = np.median(cost[:d]), np.median(cost[-d:])
+    assert last <= 3 * first, (first, last)
+    assert t.tracking[SOAK_CELL[0] % 3], "the cell is not tracked"
+    return dict(t=t, n=n_calls * chunk, ingest=ingest, first_us=1e6 * first,
+                last_us=1e6 * last, worst_ms=1e3 * cost[n_calls // 2:].max(),
+                mean_us=1e6 * cost.mean(), backlog_max=backlog_max,
+                standing=standing, flush_s=flush_s, rss=(rss0, rss1))
+
+
+def monitor_phases(dev, smi: str, synth, api, trig, MultiTrigger,
+                   WidebandTrigger) -> tuple:
+    """Phases 9a-9e, the long-running monitor, each path driven with the
+    launch counts set to 0 just before it: returns ({path: launches}, the
+    soak's block, which phase 29 paces again under the profiler)."""
+    paths = {}
+    t0 = time.perf_counter()
+    block = soak_block(synth)
+    log(f"the soak's stream: one {SOAK_BLOCK_S:.0f}-s block of cell "
+        f"{SOAK_CELL[0]} ({SOAK_CELL[1]} PRB) at 1.92 Msps, the first "
+        f"{SOAK_GAP_S:.0f} s of it noise 20 dB over the cell instead, made "
+        f"in {time.perf_counter() - t0:.1f} s and fed {SOAK_BLOCKS} times "
+        f"as views ({SOAK_BLOCKS * block.size} samples)")
+
+    # 9a. the real 2^29 rebase in a 4.8-minute stream
+    reset_launches()
+    r = monitor_soak(api, trig, block, SOAK_GAP_S, SOAK_BLOCKS, 307200, dev)
+    paths["Trigger soak to the 2^29 rebase"] = r["launches"]
+    t, rb = r["t"], r["rebase"]
+    log(f"9a soak: Trigger i8 pipeline=2, {r['fed']} samples in 307200-"
+        f"sample calls, {r['fed'] / r['wall'] / 1e6:.3f} M samples/s of "
+        f"wall time ({r['wall']:.1f} s); the rebase fired once, in call "
+        f"{rb['call']} at {rb['fed']} samples fed (_base {rb['base']} -> "
+        f"{rb['after']}, REBASE_AT {t.REBASE_AT}); {len(r['events'])} events, "
+        f"exactly the gap schedule (a track after each of {SOAK_BLOCKS} gaps,"
+        f" a drop in each but the first), the nearest drop "
+        f"{r['nearest'][0]:.3f}"
+        f" s and track {r['nearest'][1]:.3f} s of stream from the rebase; "
+        f"cell {SOAK_CELL[0]} tracked at the end; the rebasing call "
+        f"{r['rebase_ms']:.1f} ms against a median {r['around_ms']:.1f} "
+        f"(max {r['around_max_ms']:.1f}) of the 10 calls around it; "
+        f"a dispatch's launches before -> after the rebase "
+        + ", ".join(f"{r['per_before'][k]:.3f} -> {r['per_after'][k]:.3f} "
+                    f"{k}" for k in KERNELS)
+        + f", host syncs {r['syncs_before']:.3f} -> {r['syncs_after']:.3f}; "
+        f"{r['dispatches']} dispatches, at most {t.max_in_flight} in flight; "
+        f"stages (mean ms x count): {stages_text(t)} [{smi}]")
+    del t, r
+
+    # 9b. the rebase is transparent: REBASE_AT 2^23 against 2^29
+    reset_launches()
+    r = rebase_transparent(api, block, TRANSPARENT_SAMPLES, 307200, dev,
+                           2 ** 23)
+    paths["Trigger rebase 2^23 against 2^29"] = read_launches()
+    log(f"9b: {TRANSPARENT_SAMPLES} samples of the soak's stream 1 "
+        f"subcarrier off "
+        f"(+2 half-subcarriers), Trigger i8 pipeline=0 cfo_search_range=4 "
+        f"with REBASE_AT 2^23 ({r['rebases']} rebases) and 2^29 (none): the "
+        f"same {len(r['events'])} events field for field, the same bin "
+        f"{r['bins']}, telemetry equal; both runs {r['wall']:.1f} s [{smi}]")
+
+    # 9c. MultiTrigger(8, i4) and WidebandTrigger(8, wide i8), REBASE_AT 2^21
+    r = rebase_streams(MultiTrigger, WidebandTrigger, synth, dev,
+                       MONITOR8_BLOCKS, 2 ** 21, 307200)
+    paths["MultiTrigger rebases 2^21"] = r["multi"][-1]
+    paths["WidebandTrigger rebases 2^21"] = r["wide"][-1]
+    n_narrow = MONITOR8_BLOCKS * int(MONITOR8_BLOCK_S * RATE1)
+    log(f"9c: {n_narrow} samples a stream, 8 streams, each its own cell and a "
+        f"gap of its own in every {MONITOR8_BLOCK_S} s; " + "; ".join(
+            f"{key} with REBASE_AT 2^21 ({k} rebases) and 2^29: the same "
+            f"{len(ev)} events stream by stream, every stream tracked at the "
+            f"end, both runs {wall:.1f} s, {n} kernel launches"
+            for key, ((_, ev), _, k, wall, n) in
+            (("MultiTrigger(8) i4", r["multi"]),
+             ("WidebandTrigger(8 carriers at 15.36 Msps) wide i8",
+              r["wide"])))
+        + f"; the wide stream's _wabs = {r['wide'][0][0]._wabs} = "
+        f"{r['wide'][2]} x 2^21 x 8 [{smi}]")
+    del r
+
+    # 9d. a producer thread paced at real time
+    limit = 4 * 32 * HALF_FRAME
+    reset_launches()
+    r = paced_monitor(api, block, PACED_S, 38400, dev, limit)
+    paths["Trigger paced by a producer thread"] = read_launches()
+    want = flat_out(api, block, r["n"], 38400, dev)
+    assert [(k, f) for k, _, f in r["events"]] \
+        == [(k, f) for k, _, f in want] and want, (r["events"], want)
+    assert r["t"].tracking[SOAK_CELL[0] % 3]
+    lag = r["lags"]
+    log(f"9d paced: a producer thread put {r['n']} samples (38400 a chunk) "
+        f"into a queue of 64 at 1.92 Msps for {PACED_S:.0f} s; the monitor "
+        f"pulled "
+        f"while backlog <= {limit} (held {r['held']} times), polled "
+        f"{r['polls']} times; backlog after each call median / p99 / max "
+        f"{np.median(lag):.1f} / {np.percentile(lag, 99):.1f} / "
+        f"{lag.max():.1f} ms, the queue at most {r['depth']} deep, never "
+        f"overflowing; {r['wall']:.2f} s of wall time; the events equal the "
+        f"same samples fed flat-out ({[k for k, _, _ in want]}), cell "
+        f"{SOAK_CELL[0]} tracked [{smi}]")
+    del r
+
+    # 9e. unpaced ingest of 200 M samples
+    reset_launches()
+    n_calls = INGEST_SAMPLES // 19200
+    r = unpaced_ingest(api, block, n_calls, 19200, dev)
+    paths["Trigger unpaced ingest"] = read_launches()
+    log(f"9e unpaced: {r['n']} samples in {n_calls} process() calls of 19200 "
+        f"in {r['ingest']:.1f} s ({r['n'] / r['ingest'] / 1e6:.3f} M "
+        f"samples/s); a call's cost, median of the first / last decile "
+        f"{r['first_us']:.1f} / {r['last_us']:.1f} us (mean "
+        f"{r['mean_us']:.1f}), the worst of the second half "
+        f"{r['worst_ms']:.1f} ms; backlog at most {r['backlog_max']} samples "
+        f"while feeding, {r['standing']} standing at the end; resident "
+        f"{r['rss'][0]:.0f} -> {r['rss'][1]:.0f} MiB; flush() drained "
+        f"{r['standing']} samples in {1e3 * r['flush_s']:.1f} ms; cell "
+        f"{SOAK_CELL[0]} tracked [{smi}]")
+    return paths, block
+
+
+def paced_idle_share(api, block: np.ndarray, dev, smi: str) -> None:
+    """Phase 29's part of 9d: 3 s of the paced run under torch.profiler
+    (device activity only): the device's busy time against the wall."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r = paced_monitor(api, block, 3.0, 38400, dev, 4 * 32 * HALF_FRAME)
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev_events) / 1e6
+    lag = r["lags"]
+    log(f"9d under torch.profiler (device activity only): a paced run of 3 s "
+        f"({r['wall']:.2f} s of wall time), "
+        f"{sum(e.count for e in dev_events)} device kernels and copies, "
+        f"{busy * 1e3:.1f} ms of device time, device idle share "
+        f"{1 - busy / r['wall']:.4f}; backlog median / max "
+        f"{np.median(lag):.1f} / {lag.max():.1f} ms [{smi}]")
 
 
 # ======================================================================
@@ -1143,6 +1755,7 @@ def main() -> int:
         return rank_main(sys.argv[2:])
     only_cards = sys.argv[1:2] == ["--cards"]
     only_kernels = sys.argv[1:2] == ["--kernels"]
+    only_monitor = sys.argv[1:2] == ["--monitor"]
     parent_tree = None
     if "--parent" in sys.argv:
         parent_tree = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
@@ -1219,6 +1832,16 @@ def main() -> int:
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return 0 if ok else 1
+
+    if only_monitor:    # phases 1, 2, 9a-9e and 9d's idle share alone
+        paths, block = monitor_phases(dev, smi, synth, api, trig,
+                                      MultiTrigger, WidebandTrigger)
+        for path, n in paths.items():
+            assert ran(n), f"{path}: {n}"
+        paced_idle_share(api, block, dev, smi)
+        log(smi)
+        print(json.dumps({"ok": None, "partial": "monitor"}))
+        return 0
 
     # ---- 3. kernel against plain version ----
     big, cells_big = big_buffer(dev, synth, trig)
@@ -1542,8 +2165,7 @@ def main() -> int:
         t = paired_ms(lambda: rk.ring_scan_kernel(*ins), old)
         chain_ms = replay_ms(lambda: rk.ring_scan_kernel(*one), iters=50,
                              calls=20)
-        pms = cuda_ms(lambda: rk.ring_scan_plain(*ins), iters=3) \
-            if lanes <= 48 else None
+        pms = cuda_ms(lambda: rk.ring_scan_plain(*ins), iters=3)
         bms, by = ring_bound(ins[1], ins[3], ins[4])
         label = f"{lanes} lanes S={s_ring}"
         wraps = (ins[1].long() + ins[3].long().cumsum(0)
@@ -1556,9 +2178,8 @@ def main() -> int:
             f"{int(ins[4].sum())} losses, {int(ins[3].sum())} pushes, up "
             f"to {wraps} wraps before a lane's first loss) = its "
             f"schedule in PyTorch, bit for bit; {pairs_text(t)}, plain "
-            + (f"{pms:.4f} ms" if pms is not None else "not timed")
-            + f", bound {bms:.5f} ms ({by}); one lane alone {chain_ms:.4f} "
-            f"ms (one of 20 a graph) [{smi}]")
+            f"{pms:.4f} ms, bound {bms:.5f} ms ({by}); one lane alone "
+            f"{chain_ms:.4f} ms (one of 20 a graph) [{smi}]")
         del ins, one, ring_m, count_m, mean_m
     ring_info = rk.kernel_info()
     residency("CFO-ring kernel ring_scan_kernel", ring_info, rk.launch_plan,
@@ -1692,9 +2313,6 @@ def main() -> int:
         trig.host_syncs.clear()
         res = run()
         return res, read_launches(), dict(trig.host_syncs)
-
-    def dispatches(t) -> int:
-        return t.timer.summary().get("scan", {}).get("count", 0)
 
     sig = stream_cell(synth, 125, 50, 2.0, seed=11)
     feed(api.Trigger(psr_threshold=4, device="cuda"), sig[:20 * 19200])
@@ -1939,6 +2557,13 @@ def main() -> int:
     log(f"checkpoint: the Trigger resumed from save_state publishes what "
         f"the uninterrupted one does ({fields(after, decisive)} after "
         f"{fields(before, decisive)})")
+
+    # ---- 9a-9e. the long-running monitor ----
+    t0 = time.perf_counter()
+    monitor_paths, soak = monitor_phases(dev, smi, synth, api, trig,
+                                         MultiTrigger, WidebandTrigger)
+    path_launches.update(monitor_paths)
+    log(f"phases 9a-9e in {time.perf_counter() - t0:.1f} s")
 
     # ---- 10. the channelizer: 0.25 s of 30.72 Msps to 16 centres ----
     rate16 = 30.72e6
@@ -2517,7 +3142,8 @@ def main() -> int:
         log(f"bench_attrib_torch passes C={c} x 100 (host ms / device ms, "
             f"best of 3): " + "; ".join(
                 f"{r['variant']} {r['ms_per_dispatch']:.2f} / "
-                f"{r['device_ms']:.2f} ({r['launches']} launches)"
+                f"{r['device_ms']:.2f} "
+                f"({Counts(r['launches_by_kernel'])} launches)"
                 for r in rows_c)
             + (": ABC_decode = scan_engine field for field" if c == C_BIG
                else "") + f" [{smi}]")
@@ -2540,12 +3166,15 @@ def main() -> int:
     got_g = {b: next(x["config"]["group"] for x in recs if "config" in x)
              for b, recs in groups}
     assert got_g == {4096: 5, 16384: 25}, got_g
-    path_launches["bench_attrib_torch groups (subprocesses)"] = Counts(mf=sum(
-        x["launches"] for _, recs in groups for x in recs if "launches" in x))
+    path_launches["bench_attrib_torch groups (subprocesses)"] = sum(
+        Counts(x["launches_by_kernel"]) for _, recs in groups for x in recs
+        if "launches_by_kernel" in x)
     log("bench_attrib_torch groups C=512: " + "; ".join(
         f"budget {b} g={got_g[b]}: " + ", ".join(
             f"{x['variant']} {x['ms_per_dispatch']:.1f}" for x in recs
-            if "variant" in x) for b, recs in groups) + f" ms [{smi}]")
+            if "variant" in x) for b, recs in groups) + " ms; "
+        f"{path_launches['bench_attrib_torch groups (subprocesses)']} kernel "
+        f"launches in both subprocesses [{smi}]")
 
     # 25. the streaming stage timer: Trigger per transport, MultiTrigger(8)
     reset_launches()
@@ -2577,13 +3206,14 @@ def main() -> int:
     p = {r["snr_db"]: (r["p_continuous"], r["p_sharded"])
          for r in seam["curve"]}
     assert p == {-30.0: (0.0, 0.0), 0.0: (1.0, 1.0)}, seam
-    assert seam["n_shards"] == 4 and seam["launches"] > 0, seam
+    assert seam["n_shards"] == 4 and seam["launches_by_kernel"]["mf"] > 0, seam
     path_launches["seam_sweep_torch (rank 0 of 4)"] = Counts(
-        mf=seam["launches"])
+        seam["launches_by_kernel"])
     log(f"seam_sweep_torch on 4 gloo ranks on one card: P(detect) "
         f"continuous / sharded {p} over 2 trials, "
         f"{time.perf_counter() - t0:.1f} s with start-up, "
-        f"{seam['launches']} kernel launches on rank 0 [{smi}]")
+        f"{path_launches['seam_sweep_torch (rank 0 of 4)']} kernel launches "
+        f"on rank 0 [{smi}]")
 
     # 27. the SNR curve, two trials a point, 4 dB steps
     reset_launches()
@@ -2596,15 +3226,11 @@ def main() -> int:
     knees = dict(payload["knee_db"], **payload["pbch_limited"]["knee_db"])
     assert len(knees) == 10 and None not in knees.values(), knees
     path_launches["make_snr_curve_torch"] = read_launches()
-    # every path decoded, so each kernel launched on it (see `ran`); the
-    # two tools run in subprocesses report the matched filter's launches
-    # only, and the attribution tool's stages time the Viterbi alone
-    mf_only = ("bench_attrib_torch groups (subprocesses)",
-               "seam_sweep_torch (rank 0 of 4)")
+    # every path decoded, so each kernel launched on it (see `ran`; the
+    # two tools run in subprocesses report every kernel's launches in their
+    # JSON), and the attribution tool's stages time the Viterbi alone
     for path, n in path_launches.items():
-        if path in mf_only:
-            ok = n.get("mf", 0) > 0
-        elif path == "bench_attrib_torch decode and micro":
+        if path == "bench_attrib_torch decode and micro":
             ok = n.get("vit", 0) > 0 and not n.get("tti", 0) \
                 and not n.get("ring", 0)
         else:
@@ -2677,6 +3303,10 @@ def main() -> int:
         f"PERF.md), {busy / n_disp:.3f} ms of device "
         f"time of {wall / n_disp:.3f} ms of wall time a dispatch, device "
         f"idle share {1 - busy / wall:.3f} [{smi}]")
+
+    # a paced monitor (phase 9d) on the device's side: its idle share
+    paced_idle_share(api, soak, dev, smi)
+    del soak
 
     # the 128 x 100 dispatch on the device's side: busy time by kernel
     parts = device_kernels(dispatch, reps=1)

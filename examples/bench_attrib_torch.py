@@ -10,9 +10,9 @@ region's first operation and after its last, over the same best call, i.e.
 the span the card spent from the region's first kernel to its last (it
 equals the host's ms where the host's launches are the bottleneck and is
 shorter where the host waited for the card).  On the CPU it is null.  A
-`passes` rung also carries `launches`: the matched-filter kernel's launches
-over the rung's calls, warm-up included (0 on the CPU, where its plain
-version runs).
+`passes` rung also carries `launches_by_kernel`: every hand kernel's
+launches ("mf", "pb", "tti", "vit", "ring") over the rung's calls, warm-up
+included (all 0 on the CPU, where the plain versions run).
 
 Subcommands:
   passes  [--channels C] [--steps S]
@@ -61,7 +61,7 @@ sys.path.insert(0, HERE)
 from bench_sweep_torch import fence, frame_iq, make_buffer  # noqa: E402
 from ltetrigger_tpu_torch.models import trigger as trig  # noqa: E402
 from ltetrigger_tpu_torch.ops.device import resolve_device  # noqa: E402
-from ltetrigger_tpu_torch.ops.kernels import matched_filter  # noqa: E402
+from ltetrigger_tpu_torch.ops.kernels import launch_counts  # noqa: E402
 
 R = trig.R
 
@@ -132,12 +132,13 @@ def cmd_passes(args) -> tuple:
     for name, fn in [("pass_A_only", pass_a), ("passes_AB", ab),
                      ("ABC_nodecode", full_fn(False)),
                      ("ABC_decode", full_fn(True))]:
-        n0 = matched_filter.launches
+        n0 = launch_counts()
         t, dms, res = timeit(fn, dev)
+        n = {k: v - n0[k] for k, v in launch_counts().items()}
         rec = dict(variant=name, ms_per_dispatch=t * 1e3,
                    ms_per_step=t * 1e3 / S,
                    msps=C * S * trig.HALF_FRAME_LENGTH / t / 1e6,
-                   device_ms=dms, launches=matched_filter.launches - n0)
+                   device_ms=dms, launches_by_kernel=n)
         emit(**rec)
         rows.append(rec)
     return rows, res[1]

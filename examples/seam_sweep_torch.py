@@ -23,8 +23,9 @@ capture's lies higher.
 gloo); without it and without torchrun the world is this one process (t =
 1).  `--device` defaults to cuda and raises where there is no card.  Every
 rank draws the same seeded noise; rank 0 prints a JSON line per SNR and the
-summary line (with `n_shards` and `launches`, the matched-filter
-kernel's launches on rank 0) as its last.
+summary line (with `n_shards` and `launches_by_kernel`, every hand
+kernel's launches on rank 0: "mf", "pb", "tti", "vit", "ring") as its
+last.
 """
 
 import argparse
@@ -105,7 +106,7 @@ def _run(args) -> dict:
 
     from ltetrigger_tpu_torch.parallel import make_mesh
 
-    from ltetrigger_tpu_torch.ops.kernels import matched_filter
+    from ltetrigger_tpu_torch.ops.kernels import launch_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     world = torch.distributed.get_world_size() \
@@ -117,7 +118,7 @@ def _run(args) -> dict:
                      iq=frame_iq(args.capture))
     summary = {"knee_continuous_db": knee(res, "p_continuous"),
                "knee_sharded_db": knee(res, "p_sharded"),
-               "n_shards": world, "launches": matched_filter.launches,
+               "n_shards": world, "launches_by_kernel": launch_counts(),
                "curve": res}
     if mesh.coords["t"] == 0:
         print(json.dumps(summary), flush=True)

@@ -59,6 +59,11 @@ from . import trigger as trig
 LOOKBACK = trig.LOOKBACK
 WINDOW = trig.WINDOW
 V2_WINDOW = correlate.V2_WINDOW
+# the streaming CFO probe's hit: its best bin's PSR (4 windows, 3 roots)
+# over this.  Noise alone reaches it about once in 1000 probes (99th
+# percentile 2.18, 99.9th 2.51); a cell at -18 dB, one subcarrier off, in
+# half (median 2.66): examples/cfo_probe_knee_torch.py --floor
+PROBE_MIN_PSR = 2.5
 
 
 def ensure_safe_threshold(t: float) -> float:
@@ -279,16 +284,28 @@ def _mirror_rotate(dev_r, dev_i, half_bins, dev_base: int) -> cplx.Pair:
     return _rotate((dev_r, dev_i), half_bins, dev_base)
 
 
+def _probe_windows(dev: cplx.Pair, start: int, half_bins=0,
+                   dev_base: int = 0) -> cplx.Pair:
+    """The 4 half-frame windows of the stream mirror (pair of [..., cap])
+    from `start` (mirror coordinates) that a streaming probe reads: pair of
+    [..., 4, V2_WINDOW].  Given the mirror's rotation `half_bins` (host
+    integers as `_rotate` takes them; the mirror's first sample at stream
+    index `dev_base`), the windows are un-rotated: the stream as it came,
+    so the probe's bins are absolute."""
+    hb = -np.asarray(half_bins, dtype=np.int64)
+    wins = [_rotate(tuple(c[..., s:s + V2_WINDOW] for c in dev), hb,
+                    dev_base + s)
+            for s in (start + k * HALF_FRAME_LENGTH for k in range(4))]
+    return tuple(torch.stack(w, dim=-2) for w in zip(*wins))
+
+
 def _stream_cfo_probe(dev: cplx.Pair, start: int, nbins: int) -> torch.Tensor:
     """Best coarse-CFO bin over 4 half-frame windows of the stream mirror
     from `start` (mirror coordinates): the streaming analogue of
     `_cfo_bin_probe`.  dev: pair of [..., cap]; returns the bin delta in
     half-subcarrier units relative to the mirror's current rotation, int64
     of the leading shape."""
-    starts = [start + k * HALF_FRAME_LENGTH for k in range(4)]
-    wins = tuple(torch.stack([c[..., s:s + V2_WINDOW] for s in starts],
-                             dim=-2) for c in dev)
-    return _best_bin(wins, nbins)[0]
+    return _best_bin(_probe_windows(dev, start), nbins)[0]
 
 
 def _stream_scan(buffer: cplx.Pair, state: trig.TriggerState,
@@ -437,9 +454,10 @@ class _StreamPipeline:
         self._dev_base = 0          # stream index of _dev[..., 0]
         self._dev_len = 0           # valid samples in the mirror
         # integer-CFO acquisition: while a stream neither tracks nor scores,
-        # probe replica banks shifted by up to +-range subcarriers; on a
-        # hit, rotate its mirror rows and all its future uploads by the
-        # winning bin.  The normal pipeline then tracks the residual.
+        # probe replica banks shifted by up to +-range subcarriers from the
+        # nominal centre; on a hit (the winning bin's PSR over
+        # PROBE_MIN_PSR), rotate its mirror rows and all its future uploads
+        # to the winning bin.  The normal pipeline then tracks the residual.
         self.cfo_search_range = int(cfo_search_range)
         self._cfo_bins = np.zeros(self.n, dtype=np.int32)   # half-subcarriers
         self._any_tracking = np.zeros(self.n, dtype=bool)
@@ -661,7 +679,14 @@ class _StreamPipeline:
                                       self.device)
 
     def _maybe_probe_cfo(self) -> None:
-        """Coarse-CFO probe of the streams that neither track nor score."""
+        """Coarse-CFO probe of the streams that neither track nor score.
+        The argmax over bins of noise alone is a random bin.  Moving by it
+        let a run of noise walk the rotation past the probe's reach, or
+        leave it on a bin where a cell that comes up later scores without
+        ever tracking (the PSS's frequency-time ambiguity), so the probe
+        searches absolute bins (its windows un-rotated) and moves only on a
+        hit over PROBE_MIN_PSR (the JAX package moves on every probe, by a
+        bin relative to the rotation)."""
         if (not self.cfo_search_range or self._dev is None
                 or self._steps_since_probe < self._probe_every):
             return
@@ -677,9 +702,16 @@ class _StreamPipeline:
             return
         self._steps_since_probe = 0
         trig.host_syncs["probe"] += 1
-        deltas = _host(_stream_cfo_probe(self._dev, start,
-                                              self.cfo_search_range))
-        deltas = np.where(idle, deltas.reshape(self.n), 0).astype(np.int32)
+        best, per_bin = _best_bin(
+            _probe_windows(self._dev, start,
+                           self._cfo_bins.reshape(self._batch),
+                           self._dev_base), self.cfo_search_range)
+        # the winning bin and its PSR in one copy: one host wait a probe
+        best, psr = _host(torch.stack([best.to(torch.float32),
+                                       per_bin.amax(dim=-1)]))
+        hit = idle & (psr.reshape(self.n) > PROBE_MIN_PSR)
+        deltas = np.where(hit, best.reshape(self.n) - self._cfo_bins,
+                          0).astype(np.int32)
         if deltas.any():
             self._dev = _mirror_rotate(self._dev[0], self._dev[1],
                                        deltas.reshape(self._batch),

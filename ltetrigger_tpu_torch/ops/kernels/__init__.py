@@ -1,0 +1,18 @@
+"""The hand-written CUDA kernels' wrappers (one module a kernel) and their
+build (`build.py`).  Each wrapper module counts its kernel's launches in its
+`launches`; on the CPU the plain versions run and the counts stay 0."""
+
+
+def modules() -> dict:
+    """Every hand kernel's wrapper module by short name: "mf" (matched
+    filter), "pb" (pass B), "tti" (TTI chain), "vit" (Viterbi), "ring" (CFO
+    ring)."""
+    from . import cfo_ring, matched_filter, pass_b, tti_chain, viterbi
+    return {"mf": matched_filter, "pb": pass_b, "tti": tti_chain,
+            "vit": viterbi, "ring": cfo_ring}
+
+
+def launch_counts() -> dict:
+    """Every hand kernel's launches so far in this process, by the short
+    names of `modules()`."""
+    return {k: m.launches for k, m in modules().items()}

@@ -81,7 +81,9 @@ def test_seam_sweep_on_four_ranks_equals_jax():
                   "--trials", str(TRIALS), "--steps-per-shard", str(STEPS)])
     *curve, summary = lines
     assert summary["n_shards"] == 4 and summary["curve"] == curve
-    assert summary["launches"] == 0         # the plain version on the CPU
+    # every hand kernel's count, 0 where the plain versions run
+    assert summary["launches_by_kernel"] == dict.fromkeys(
+        ("mf", "pb", "tti", "vit", "ring"), 0)
     want = _jax_seam(SNRS, TRIALS, STEPS)
     assert curve == want
     assert {r["p_sharded"] for r in want} > {0.0, 1.0}   # one in between
@@ -98,6 +100,11 @@ def test_groups_follow_the_budget():
     assert budgets == [2, 8]
     assert [(c["group_budget"], c["group"]) for c in configs] == [(2, 1),
                                                                   (8, 4)]
+    # each subprocess's rungs report every hand kernel's launches: 0 here
+    rungs = [x for x in lines if "variant" in x]
+    assert len(rungs) == 8 and all(
+        x["launches_by_kernel"] == dict.fromkeys(
+            ("mf", "pb", "tti", "vit", "ring"), 0) for x in rungs)
     assert [x["variant"] for x in lines if "variant" in x] == [
         "pass_A_only", "passes_AB", "ABC_nodecode", "ABC_decode"] * 2
 

@@ -164,8 +164,11 @@ def test_passes_ladder_equals_scan_engine_and_jax():
     jax_keys = [set(k) for k, _ in _jax_emits("passes")]
     assert jax_keys[0] == {"config"}
     for r in rows:
-        assert set(r) == jax_keys[1] | {"device_ms", "launches"}
-        assert r["device_ms"] is None and r["launches"] == 0
+        assert set(r) == jax_keys[1] | {"device_ms", "launches_by_kernel"}
+        assert r["device_ms"] is None
+        # every hand kernel's count, 0 where the plain versions run
+        assert r["launches_by_kernel"] == dict.fromkeys(
+            ("mf", "pb", "tti", "vit", "ring"), 0)
     buf = bench_sweep_torch.make_buffer(2, 0.55, "cpu")
     _, want = trig.scan_engine(buf, trig.init_state(batch=(2,), device="cpu"),
                                10, 4.0, grid0=trig.LOOKBACK)
