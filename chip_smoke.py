@@ -114,15 +114,18 @@ Phases, in order; any failure exits non-zero:
      channel), pipeline=0, REBASE_AT 2^21 (10 rebases) and 2^29: the same
      events stream by stream, every stream tracked at the end, `_wabs` the
      rebases' deltas; each class's pair is a path of its own for `ran()`;
- 9d. a producer thread puts 38400-sample chunks of the soak's stream into a
-     queue of 64 at 1.92 Msps of wall time for 10 s; the monitor calls
-     process() when a chunk is there and poll() otherwise, and pulls nothing
-     while `backlog` exceeds 4 dispatches of 32 half-frames: the queue never
-     overflows and the events equal the same samples fed flat-out; the
-     backlog's median / p99 / max in ms and how often the bound held the
-     monitor back (never, where process() returns with only the read-ahead
-     standing); phase 29 paces 3 s more under torch.profiler for the
-     device's idle share;
+ 9d. a producer thread hands 38400-sample chunks of the soak's stream to a
+     queue of 64 at 1.92 Msps of wall time for 10 s, 8 chunks at once (a
+     burst, as an SDR hands over a buffer); the monitor calls process()
+     when a chunk is there and poll() otherwise, and after each call pulls
+     nothing while `backlog` exceeds half a half-frame, polling for at most
+     2 ms: a bound below the one half-frame of read-ahead that process()
+     leaves standing in one process (pass C's host waits drain every
+     dispatch before it returns), so the gate holds (held > 0) and only new
+     samples release it; the queue never overflows and the events equal
+     the same samples fed flat-out; the backlog's median / p99 / max in ms,
+     how often the gate held and how often the polls drained it; phase 29
+     paces 3 s more under torch.profiler for the device's idle share;
  9e. 144 M samples through `Trigger.process` in 19200-sample calls as
      fast as this thread makes them, then flush(): the median call of the
      last decile at most 3x the first's, the cell tracked; the worst call
@@ -178,11 +181,38 @@ Phases, in order; any failure exits non-zero:
      CPU ranks.  `ch` = 4: `MultiTrigger(8, mesh=)` i16 and
      `WidebandTrigger(8 centres, mesh=)` f32, gathered events equal to
      phases 7 and 12, samples/s per stream; a sharded checkpoint across a
-     cut, loaded by a trigger without a mesh.  Every rank has a timeout and
-     a rank that fails fails the run;
+     cut, loaded by a trigger without a mesh.  Then the multi-process
+     monitor (`python3 chip_smoke.py --mesh` runs the build, 9c and these
+     alone and ends with {"ok": null, "partial": "mesh"}):
+     (a) `ch` = 4: `MultiTrigger(8, i4, mesh=)` and `WidebandTrigger(8
+     centres at 15.36 Msps, wide i8, mesh=)` at pipeline=2 through phase
+     9c's 21.5 M samples a stream with REBASE_AT 2^21 in every rank: each
+     rank's callbacks' events, merged, equal 9c's one-process events stream
+     by stream, every rank rebases as often as 9c's run, every stream is
+     tracked at the end, `_wabs` is the rebases' deltas on every rank; a
+     flush and a `save_state` before every call from two before the first
+     call that passes each of the first two multiples of REBASE_AT to four
+     after it; one of those checkpoints (the first at which the ranks had
+     rebased differently, else the first that settled a rebase) loaded into
+     a trigger without a mesh and continued to the end publishes the rest;
+     each rank's rebase calls, samples/s a stream and the checkpoints' ms;
+     (b) `ch` = 4: a producer thread a rank, 10 s of those streams at 1.92
+     Msps a stream, in bursts as in 9d, into `MultiTrigger(8, i4, mesh=)`
+     with the bound at two half-frames: above the read-ahead, below it plus
+     the dispatch in flight that ranks sharing the card leave; held > 0 on
+     every rank, the events equal the same samples fed flat-out, each
+     rank's lag median / p99 / max; (c) `ch` = 2 and 4: `channel_scan(mesh=)`
+     with 128 channels a rank (phase 5's buffer repeated: C = 256 and 512 x
+     100 steps), the gathered output equal to one process's channel_scan of
+     the same C field for field, a detection in every channel, the times
+     beside one process's.  Every rank records the CPUs it may run on, its
+     torch threads and each plan's wall and CPU seconds.  Each spawn has a
+     420 s limit, a failing rank ends the others and the run, the ranks'
+     output is printed with a `[rank r/n]` prefix;
  21. one rank per card over NCCL, only where there are two or more cards
-     (one line says so otherwise): the `ch` and `t` cases of phase 20;
-     `python3 chip_smoke.py --cards` runs phases 1, 2 and this one alone;
+     (one line says so otherwise): the `ch` and `t` cases of phase 20 and
+     its (a) and (c); `python3 chip_smoke.py --cards` runs phases 1, 2, 9c
+     and this one alone;
  22-28. the example tools, examples/*_torch.py, in this process where no
      ranks or environment variables are needed:
  22. `bench_sweep_torch` at C = 32, 256 and 1024 (0.55 s, 0.55 s and, under
@@ -220,7 +250,8 @@ Every path is driven with the five kernels' launch counts (matched filter
 0 just before it and read just after; each must have launched the first
 four, the TTI chain exactly as often as the Viterbi (one of each a decoding
 dispatch), and the CFO ring on phase 11b's path alone (the only dispatch
-past 200 steps); the paths that run in other processes (the example tools'
+past 200 steps); each rank x plan of phases 20 and 21 is a path of its
+own; the paths that run in other processes (the ranks, the example tools'
 groups and seam sweep) report every kernel's count in their JSON, and the
 attribution tool's `decode` / `micro` stages launch the Viterbi alone.  The
 line before the last is the kernels' JSON record; the last line is
@@ -865,14 +896,22 @@ def free_port() -> int:
 # the long-running monitor (phases 9a-9e)
 # ======================================================================
 RATE1 = 1.92e6
+HALF_FRAME = 9600
 SOAK_CELL = (125, 50)           # the soak's cell: id, PRB field
 SOAK_BLOCK_S, SOAK_GAP_S = 10.0, 1.0
 SOAK_BLOCKS = 29                # 556.8 M samples: past 2^29 in block 27
 TRANSPARENT_SAMPLES = 136 * 307200      # phase 9b: ~41.8 M, 4 rebases
 MONITOR8_BLOCKS = 7             # phase 9c: 21.5 M samples a stream
-PACED_S = 10.0                  # phase 9d: seconds of real time
+PACED_S = 10.0                  # phases 9d, 20 (b): seconds of real time
+PACED_BURST = 8                 # chunks the producer hands over at once
+PACED_HOLD_S = 0.002            # the gate's longest hold after one chunk
+# the gate's bound on backlog: in one process below the read-ahead of one
+# half-frame that process() leaves standing (nothing else is ever left:
+# pass C's host waits drain each dispatch before it returns); on ranks that
+# share a card above it and below it plus a 4-step dispatch in flight
+PACED_LIMIT_1, PACED_LIMIT_RANKS = HALF_FRAME // 2, 2 * HALF_FRAME
 INGEST_SAMPLES = 144_000_000    # phase 9e: 7.5 blocks, ending tracked
-HALF_FRAME = 9600
+MESH_REBASE_AT = 2 ** 21        # phases 9c and 20 (a): 10 rebases
 
 
 def gapped_stream(synth, cell, seconds: float, gap, seed: int) -> np.ndarray:
@@ -1113,6 +1152,7 @@ def rebase_transparent(api, block: np.ndarray, n_samples: int, chunk: int,
 
 
 MONITOR8_BLOCK_S = 1.6          # 10 chunks of 307200 at 1.92 Msps
+MONITOR8_CHUNK = 307200         # phases 9c and 20 (a): samples a call
 
 
 def monitor8_gaps(k: int) -> tuple:
@@ -1121,59 +1161,90 @@ def monitor8_gaps(k: int) -> tuple:
     return (0.1 + 0.12 * k, 0.35 + 0.12 * k)
 
 
-def rebase_streams(MultiTrigger, WidebandTrigger, synth, dev, n_blocks: int,
-                   rebase_at: int, chunk: int) -> dict:
-    """Phase 9c: `MultiTrigger(8, i4)` and `WidebandTrigger(8 carriers of
-    CENTERS8, wide i8)`, each stream its own cell of CELLS8 with a gap of
-    its own in every 1.6-s block, `n_blocks` blocks, REBASE_AT lowered to
-    `rebase_at` and not: the same events stream by stream, every carrier
-    tracked at the end, the wide stream's `_wabs` the sum of the rebases'
-    deltas.  pipeline=0, as in phase 9b.  Each class's pair runs with the
-    launch counts set to 0 just before it: {"multi" / "wide": (the pair,
-    the rebases, the wall time, its launches)}."""
-    n = len(CELLS8)
+def monitor8_inputs(synth, dev) -> tuple:
+    """Phase 9c's inputs, also the mesh monitor's (phase 20): one 1.6-s
+    block of 8 streams at 1.92 Msps [8, n], each its own cell of CELLS8 with
+    a gap of its own (monitor8_gaps) and noise 20 dB over the cell in it,
+    and the same 8 carriers in one block of a 15.36 Msps band at CENTERS8,
+    each channel's noise burst in its gap."""
     blocks = np.stack([gapped_stream(synth, cell, MONITOR8_BLOCK_S,
                                      monitor8_gaps(k), seed=70 + 2 * k)
                        for k, cell in enumerate(CELLS8)])
-
-    def tagged_log(events):
-        return dict(on_track=lambda s, c: events.append(
-                        (s, "track", fields([c])[0])),
-                    on_drop=lambda s, cid: events.append((s, "drop", cid)))
-
-    def feed_multi(m):
-        for _ in range(n_blocks):
-            for i in range(0, blocks.shape[1], chunk):
-                yield lambda i=i: m.process_all(list(blocks[:, i:i + chunk]))
-
-    out = {}
-    reset_launches()
-    t0 = time.perf_counter()
-    pair = rebase_pair(lambda ev: MultiTrigger(
-        n, psr_threshold=4, transport="i4", pipeline=0, device=dev,
-        **tagged_log(ev)), feed_multi, rebase_at)
-    out["multi"] = pair + (time.perf_counter() - t0, read_launches())
-
-    ratio = int(round(RATE8 / RATE1))
     wide = add_bursts(
         dev, make_band(dev, synth, RATE8,
                        [(c, cid, 50, *monitor8_gaps(k)) for k, (c, (cid, _))
                         in enumerate(zip(CENTERS8, CELLS8))],
                        MONITOR8_BLOCK_S, seed=79), RATE8,
         [(c, *monitor8_gaps(k)) for k, c in enumerate(CENTERS8)],
-        10.0 / math.sqrt(n), seed=80)
-    wchunk = chunk * ratio
+        10.0 / math.sqrt(len(CELLS8)), seed=80)
+    return blocks, wide
 
-    def feed_wide_fn(w):
-        for _ in range(n_blocks):
-            for i in range(0, wide.size, wchunk):
-                yield lambda i=i: w.process_wide(wide[i:i + wchunk])
 
+def monitor8(synth, dev, MultiTrigger, WidebandTrigger) -> tuple:
+    """Phase 9c: `rebase_streams` on `monitor8_inputs` at MESH_REBASE_AT;
+    returns its result and what phase 20 (a) is held to: the inputs, and
+    each class's events (JSON-shaped), rebases and wall time of the run with
+    the lowered REBASE_AT."""
+    blocks, wide = monitor8_inputs(synth, dev)
+    r = rebase_streams(MultiTrigger, WidebandTrigger, blocks, wide, dev,
+                       MONITOR8_BLOCKS, MESH_REBASE_AT, MONITOR8_CHUNK)
+    return r, dict(blocks=blocks, band=wide, **{
+        key: dict(events=json.loads(json.dumps(r[key][0][1])),
+                  rebases=r[key][2], wall=r[key][3])
+        for key in ("multi", "wide")})
+
+
+def tagged_log(events: list) -> dict:
+    """Callbacks of a MultiTrigger / WidebandTrigger that append (stream,
+    "track", fields) and (stream, "drop", cell id) to `events`."""
+    return dict(on_track=lambda s, c: events.append(
+                    (s, "track", fields([c])[0])),
+                on_drop=lambda s, cid: events.append((s, "drop", cid)))
+
+
+def multi_calls(m, blocks: np.ndarray, n_blocks: int, chunk: int):
+    """`blocks` [N, n] repeated `n_blocks` times through m.process_all() in
+    `chunk`-sample views: one callable a call."""
+    for _ in range(n_blocks):
+        for i in range(0, blocks.shape[1], chunk):
+            yield lambda i=i: m.process_all(list(blocks[:, i:i + chunk]))
+
+
+def wide_calls(w, wide: np.ndarray, n_blocks: int, chunk: int):
+    """`wide` repeated `n_blocks` times through w.process_wide() in
+    `chunk`-sample views: one callable a call."""
+    for _ in range(n_blocks):
+        for i in range(0, wide.size, chunk):
+            yield lambda i=i: w.process_wide(wide[i:i + chunk])
+
+
+def rebase_streams(MultiTrigger, WidebandTrigger, blocks: np.ndarray,
+                   wide: np.ndarray, dev, n_blocks: int, rebase_at: int,
+                   chunk: int) -> dict:
+    """Phase 9c: `MultiTrigger(8, i4)` and `WidebandTrigger(8 carriers of
+    CENTERS8, wide i8)` fed `n_blocks` x the blocks of `monitor8_inputs`,
+    REBASE_AT lowered to `rebase_at` and not: the same events stream by
+    stream, every carrier tracked at the end, the wide stream's `_wabs` the
+    sum of the rebases' deltas.  pipeline=0, as in phase 9b.  Each class's
+    pair runs with the launch counts set to 0 just before it: {"multi" /
+    "wide": (the pair, the rebases, the wall time, its launches)}."""
+    n = len(CELLS8)
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    pair = rebase_pair(lambda ev: MultiTrigger(
+        n, psr_threshold=4, transport="i4", pipeline=0, device=dev,
+        **tagged_log(ev)), lambda m: multi_calls(m, blocks, n_blocks, chunk),
+        rebase_at)
+    out["multi"] = pair + (time.perf_counter() - t0, read_launches())
+
+    ratio = int(round(RATE8 / RATE1))
     reset_launches()
     t0 = time.perf_counter()
     pair = rebase_pair(lambda ev: WidebandTrigger(
         RATE8, CENTERS8, transport="i8", psr_threshold=4, pipeline=0,
-        device=dev, **tagged_log(ev)), feed_wide_fn, rebase_at)
+        device=dev, **tagged_log(ev)),
+        lambda w: wide_calls(w, wide, n_blocks, chunk * ratio), rebase_at)
     out["wide"] = pair + (time.perf_counter() - t0, read_launches())
 
     for key, ((low, ev_low), (real, ev_real), k_low, _, _) in out.items():
@@ -1196,44 +1267,47 @@ def rebase_streams(MultiTrigger, WidebandTrigger, synth, dev, n_blocks: int,
     return out
 
 
-def paced_monitor(api, block: np.ndarray, seconds: float, chunk: int,
-                  dev, limit: int) -> dict:
-    """Phase 9d: a producer thread puts `chunk`-sample views of `block` into
-    a queue of 64 at 1.92 Msps of wall time for `seconds`; this thread
-    calls process() when a chunk is there and poll() otherwise, and pulls
-    nothing while `backlog` exceeds `limit`.  The queue must never
-    overflow.  Returns the trigger, its events, the backlog after every
-    call and the wall time."""
+def paced_monitor(t, feed_chunk, n_chunks: int, chunk: int,
+                  limit: int) -> dict:
+    """A producer thread hands chunk indices 0 .. n_chunks - 1 of `chunk`
+    samples a stream to a queue of 64 at 1.92 Msps of wall time,
+    PACED_BURST of them at once when the last has arrived (as an SDR hands
+    over a buffer); this thread calls feed_chunk(k) when a chunk is there
+    and t.poll() otherwise.  After each feed, the backlog gate: while the
+    largest stream's `backlog` exceeds `limit` the monitor pulls nothing
+    and polls, for at most PACED_HOLD_S a chunk.  `held` counts the chunks after which the
+    gate held, `drained` those of them whose backlog the polls brought
+    within the limit (outputs in flight harvested); the rest was the
+    standing read-ahead, which only more samples move.  The queue must
+    never overflow.  Returns the backlog after every feed in ms, the
+    queue's depth, the counts and the wall time."""
     import queue
     import threading
 
     q = queue.Queue(maxsize=64)
-    overflow, n_chunks = [], int(round(seconds * RATE1)) // chunk
-    assert n_chunks * chunk <= block.size
+    overflow = []
 
     def produce():
         due = time.perf_counter()
-        for k in range(n_chunks):
-            due += chunk / RATE1
+        for k0 in range(0, n_chunks, PACED_BURST):
+            ks = range(k0, min(k0 + PACED_BURST, n_chunks))
+            due += len(ks) * chunk / RATE1
             time.sleep(max(due - time.perf_counter(), 0.0))
-            try:
-                q.put_nowait(k)
-            except queue.Full:
-                overflow.append(k)
+            for k in ks:
+                try:
+                    q.put_nowait(k)
+                except queue.Full:
+                    overflow.append(k)
         q.put(None)
 
-    events, fed = [], [0]
-    t = logged_trigger(api, events, fed, transport="i8", pipeline=2,
-                       device=dev)
-    lags, depth, polls, held = [], [], 0, 0
+    def backlog() -> int:
+        return int(np.max(t.backlog))
+
+    lags, depth, polls, held, drained = [], [], 0, 0, 0
     producer = threading.Thread(target=produce, daemon=True)
     t0 = time.perf_counter()
     producer.start()
     while True:
-        if t.backlog > limit:
-            t.poll()
-            held += 1
-            continue
         try:
             k = q.get(timeout=0.001)
         except queue.Empty:
@@ -1243,18 +1317,43 @@ def paced_monitor(api, block: np.ndarray, seconds: float, chunk: int,
         if k is None:
             break
         depth.append(q.qsize())
+        feed_chunk(k)
+        lags.append(backlog())
+        if lags[-1] > limit:
+            held += 1
+            until = time.perf_counter() + PACED_HOLD_S
+            while backlog() > limit and time.perf_counter() < until:
+                t.poll()
+            drained += backlog() <= limit
+    t.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    producer.join(timeout=60)
+    assert not producer.is_alive(), "the producer never finished"
+    assert not overflow, f"the queue overflowed at chunks {overflow[:5]}"
+    return dict(lags=np.asarray(lags) / RATE1 * 1e3, depth=max(depth),
+                polls=polls, held=held, drained=drained, wall=wall,
+                n=n_chunks * chunk)
+
+
+def paced_trigger(api, block: np.ndarray, seconds: float, chunk: int,
+                  dev) -> dict:
+    """Phase 9d: `paced_monitor` of `seconds` of `block` into an i8 Trigger
+    (pipeline=2) in `chunk`-sample pieces, with the bound below the standing
+    read-ahead of one half-frame (PACED_LIMIT_1).  Adds the trigger and its
+    events to the result."""
+    events, fed = [], [0]
+    t = logged_trigger(api, events, fed, transport="i8", pipeline=2,
+                       device=dev)
+
+    def feed_chunk(k):
         fed[0] += chunk
         t.process(block[k * chunk:(k + 1) * chunk])
-        lags.append(t.backlog)
-    t.flush()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    producer.join()
-    assert not overflow, f"the queue overflowed at chunks {overflow[:5]}"
-    return dict(t=t, events=events, lags=np.asarray(lags) / RATE1 * 1e3,
-                depth=max(depth), polls=polls, held=held, wall=wall,
-                n=n_chunks * chunk)
+
+    n_chunks = int(round(seconds * RATE1)) // chunk
+    assert n_chunks * chunk <= block.size
+    return dict(paced_monitor(t, feed_chunk, n_chunks, chunk, PACED_LIMIT_1),
+                t=t, events=events)
 
 
 def flat_out(api, block: np.ndarray, n: int, chunk: int, dev) -> list:
@@ -1311,7 +1410,8 @@ def monitor_phases(dev, smi: str, synth, api, trig, MultiTrigger,
                    WidebandTrigger) -> tuple:
     """Phases 9a-9e, the long-running monitor, each path driven with the
     launch counts set to 0 just before it: returns ({path: launches}, the
-    soak's block, which phase 29 paces again under the profiler)."""
+    soak's block, which phase 29 paces again under the profiler, and 9c's
+    inputs and one-process events, which phase 20 (a) is held to)."""
     paths = {}
     t0 = time.perf_counter()
     block = soak_block(synth)
@@ -1359,8 +1459,7 @@ def monitor_phases(dev, smi: str, synth, api, trig, MultiTrigger,
         f"{r['bins']}, telemetry equal; both runs {r['wall']:.1f} s [{smi}]")
 
     # 9c. MultiTrigger(8, i4) and WidebandTrigger(8, wide i8), REBASE_AT 2^21
-    r = rebase_streams(MultiTrigger, WidebandTrigger, synth, dev,
-                       MONITOR8_BLOCKS, 2 ** 21, 307200)
+    r, mon8 = monitor8(synth, dev, MultiTrigger, WidebandTrigger)
     paths["MultiTrigger rebases 2^21"] = r["multi"][-1]
     paths["WidebandTrigger rebases 2^21"] = r["wide"][-1]
     n_narrow = MONITOR8_BLOCKS * int(MONITOR8_BLOCK_S * RATE1)
@@ -1377,21 +1476,24 @@ def monitor_phases(dev, smi: str, synth, api, trig, MultiTrigger,
         f"{r['wide'][2]} x 2^21 x 8 [{smi}]")
     del r
 
-    # 9d. a producer thread paced at real time
-    limit = 4 * 32 * HALF_FRAME
+    # 9d. a producer thread paced at real time, in bursts
     reset_launches()
-    r = paced_monitor(api, block, PACED_S, 38400, dev, limit)
+    r = paced_trigger(api, block, PACED_S, 38400, dev)
     paths["Trigger paced by a producer thread"] = read_launches()
     want = flat_out(api, block, r["n"], 38400, dev)
     assert [(k, f) for k, _, f in r["events"]] \
         == [(k, f) for k, _, f in want] and want, (r["events"], want)
     assert r["t"].tracking[SOAK_CELL[0] % 3]
+    assert r["held"] > 0, "the backlog gate never held the monitor back"
     lag = r["lags"]
     log(f"9d paced: a producer thread put {r['n']} samples (38400 a chunk) "
-        f"into a queue of 64 at 1.92 Msps for {PACED_S:.0f} s; the monitor "
-        f"pulled "
-        f"while backlog <= {limit} (held {r['held']} times), polled "
-        f"{r['polls']} times; backlog after each call median / p99 / max "
+        f"into a queue of 64 at 1.92 Msps for {PACED_S:.0f} s, "
+        f"{PACED_BURST} chunks at once; after each call the monitor pulled "
+        f"nothing while backlog > {PACED_LIMIT_1} (below the standing "
+        f"read-ahead), polling for at most {PACED_HOLD_S * 1e3:.0f} ms: held "
+        f"after {r['held']} of {len(lag)} calls, drained to the bound by the "
+        f"polls {r['drained']} times; polled {r['polls']} times while "
+        f"waiting; backlog after each call median / p99 / max "
         f"{np.median(lag):.1f} / {np.percentile(lag, 99):.1f} / "
         f"{lag.max():.1f} ms, the queue at most {r['depth']} deep, never "
         f"overflowing; {r['wall']:.2f} s of wall time; the events equal the "
@@ -1414,7 +1516,7 @@ def monitor_phases(dev, smi: str, synth, api, trig, MultiTrigger,
         f"{r['rss'][0]:.0f} -> {r['rss'][1]:.0f} MiB; flush() drained "
         f"{r['standing']} samples in {1e3 * r['flush_s']:.1f} ms; cell "
         f"{SOAK_CELL[0]} tracked [{smi}]")
-    return paths, block
+    return paths, block, mon8
 
 
 def paced_idle_share(api, block: np.ndarray, dev, smi: str) -> None:
@@ -1422,7 +1524,7 @@ def paced_idle_share(api, block: np.ndarray, dev, smi: str) -> None:
     (device activity only): the device's busy time against the wall."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        r = paced_monitor(api, block, 3.0, 38400, dev, 4 * 32 * HALF_FRAME)
+        r = paced_trigger(api, block, 3.0, 38400, dev)
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in dev_events) / 1e6
@@ -1438,14 +1540,64 @@ def paced_idle_share(api, block: np.ndarray, dev, smi: str) -> None:
 # ======================================================================
 # one rank of phases 20 and 21 (`chip_smoke.py --rank ...`)
 # ======================================================================
+def mesh_save_calls(chunk: int) -> set:
+    """The calls before which phase 20 (a) checkpoints: for each of the
+    first two rebases, from two calls before the first call whose samples
+    pass k x MESH_REBASE_AT (no rank can rebase earlier) to four calls after
+    it."""
+    out = set()
+    for k in (1, 2):
+        first = -(-k * MESH_REBASE_AT // chunk)
+        out.update(range(first - 2, first + 5))
+    return out
+
+
+def mesh_monitor(t, calls, save_at: set, ckpt: pathlib.Path,
+                 events: list) -> dict:
+    """Phase 20 (a) on one rank: every call of `calls` through `t` (a
+    MultiTrigger or WidebandTrigger on a mesh whose callbacks append to
+    `events`), then flush(); before each call index in `save_at` a flush()
+    and a save_state() into ckpt/<index>.npz (collectives: every rank passes
+    the same indices).  Returns the calls at which the rank rebased, as
+    [call, "process" or "save"], each save's rebases before it, the events
+    published before it and its time, and the wall time."""
+    rebases, saves = [], []
+    t0 = time.perf_counter()
+    for c, call in enumerate(calls):
+        if c in save_at:
+            t.flush()
+            base, s0 = t._base, time.perf_counter()
+            t.save_state(str(ckpt / f"{c}.npz"))
+            saves.append(dict(call=c, rebases_before=len(rebases),
+                              events=len(events),
+                              ms=1e3 * (time.perf_counter() - s0)))
+            if t._base < base:
+                rebases.append([c, "save"])
+        base = t._base
+        call()
+        if t._base < base:
+            rebases.append([c, "process"])
+    t.flush()
+    torch.cuda.synchronize()
+    return dict(rebases=rebases, saves=saves,
+                wall_s=time.perf_counter() - t0)
+
+
 def rank_main(args) -> int:
     """python3 chip_smoke.py --rank RANK WORLD PORT DIR BACKEND PLAN
 
     BACKEND gloo: every rank on cuda:0; nccl: rank k on cuda:k.  PLAN is a
-    comma-separated list of "scan" (ch = WORLD), "shards" (t = WORLD) and
-    "stream" (ch = WORLD, needs DIR/sigs.npy and DIR/band8.npy).  What the
-    rank measured goes to DIR/rank<RANK>.json, the gathered results (rank
-    0) to files beside it.  No phase carries on without a card."""
+    comma-separated list of "scan" (the 128 x 100 buffer over ch = WORLD),
+    "shards" (t = WORLD), "stream" (ch = WORLD, needs DIR/sigs.npy and
+    DIR/band8.npy), "monitor" (phase 20 (a): the mesh monitor through
+    rebases, needs DIR/monitor8.npy and DIR/monitor_wide.npy), "paced" (20
+    (b): a paced producer, needs DIR/monitor8.npy) and "scan128" (20 (c):
+    128 channels a rank).  Each path runs with the launch counts set to 0
+    just before it and read just after it (`launches`, by path); `plans`
+    holds each plan's wall and CPU seconds.  What the rank measured goes to
+    DIR/rank<RANK>.json, the gathered results (rank 0) to files beside it.
+    No phase carries on without a card."""
+    import os
     rank, world, port = int(args[0]), int(args[1]), int(args[2])
     out, backend, plan = pathlib.Path(args[3]), args[4], args[5].split(",")
     if not torch.cuda.is_available():
@@ -1467,142 +1619,259 @@ def rank_main(args) -> int:
         f"127.0.0.1:{port}", world, rank, backend=backend, timeout=300,
         device="cuda:0" if backend == "gloo" else f"cuda:{rank}")
     res = {"rank": rank, "world": world, "backend": dist.get_backend(),
-           "device": str(dev)}
+           "device": str(dev), "cpus": len(os.sched_getaffinity(0)),
+           "threads": torch.get_num_threads(), "launches": {}, "plans": {}}
 
     def barrier(mesh):
         meshmod.all_gather_object(None, mesh, None)
         torch.cuda.synchronize()
 
+    @contextlib.contextmanager
+    def plan_clock(name):
+        w0, c0 = time.perf_counter(), time.process_time()
+        yield
+        res["plans"][name] = {"wall_s": time.perf_counter() - w0,
+                              "cpu_s": time.process_time() - c0}
+
+    def counted(name, fn):
+        """fn() with the launch counts set to 0 just before it; its
+        launches become path `name`."""
+        reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        res["launches"][name] = read_launches()
+        return got
+
+    def timed_scans(name, buf, full=None):
+        """channel_scan(buf, mesh=ch) after a warm-up, 3 times, each a path
+        `name` counted from 0, and between them the engine alone over this
+        rank's rows (and, with `full`, over all of `full` on every rank at
+        once): ({"call_ms", "engine_ms", "full_ms"}, the last output)."""
+        lo, hi = ch.local_slice(buf[0].shape[0])
+        local = tuple(c[lo:hi] for c in buf)
+        channel_scan(buf, STEPS_BIG, 4.0, mesh=ch)          # warm-up
+        ms = {"call_ms": [], "engine_ms": [], "full_ms": []}
+
+        def clock(key, fn):
+            barrier(ch)
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms[key].append(1e3 * (time.perf_counter() - t0))
+            return got
+
+        def engine(rows):
+            return trig.scan_engine(rows, trig.init_state(
+                batch=(rows[0].shape[0],), device=dev), STEPS_BIG, 4.0,
+                grid0=trig.LOOKBACK)
+
+        for _ in range(3):
+            _, got = clock("call_ms", lambda: counted(
+                name, lambda: channel_scan(buf, STEPS_BIG, 4.0, mesh=ch)))
+            clock("engine_ms", lambda: engine(local))
+            if full is not None:
+                clock("full_ms", lambda: engine(full))
+        return ms, got
+
     try:
         ch = make_mesh(world, 1)
         if "scan" in plan:
-            big, _ = big_buffer(dev, synth, trig)
-            lo, hi = ch.local_slice(C_BIG)
-            local = tuple(c[lo:hi] for c in big)
-            channel_scan(big, STEPS_BIG, 4.0, mesh=ch)         # warm-up
-            t_call, t_engine, t_full = [], [], []
-            for _ in range(3):
-                barrier(ch)
-                t0 = time.perf_counter()
-                reset_launches()
-                _, got = channel_scan(big, STEPS_BIG, 4.0, mesh=ch)
-                torch.cuda.synchronize()
-                t_call.append(1e3 * (time.perf_counter() - t0))
-                res["scan_launches"] = read_launches()
-                barrier(ch)
-                t0 = time.perf_counter()
-                trig.scan_engine(local, trig.init_state(batch=(hi - lo,),
-                                                        device=dev),
-                                 STEPS_BIG, 4.0, grid0=trig.LOOKBACK)
-                torch.cuda.synchronize()
-                t_engine.append(1e3 * (time.perf_counter() - t0))
-                # every rank all 128 channels at once: WORLD x the work
-                barrier(ch)
-                t0 = time.perf_counter()
-                trig.scan_engine(big, trig.init_state(batch=(C_BIG,),
-                                                      device=dev),
-                                 STEPS_BIG, 4.0, grid0=trig.LOOKBACK)
-                torch.cuda.synchronize()
-                t_full.append(1e3 * (time.perf_counter() - t0))
-            res.update(scan_call_ms=t_call, scan_engine_ms=t_engine,
-                       scan_full_ms=t_full, scan_rows=[lo, hi])
-            if rank == 0:
-                np.save(out / f"scan_ch{world}.npy",
-                        trig.pack_output(got).cpu().numpy())
-            del big, local, got
+            with plan_clock("scan"):
+                big, _ = big_buffer(dev, synth, trig)
+                res["scan"], got = timed_scans("scan", big, full=big)
+                if rank == 0:
+                    np.save(out / f"scan_ch{world}.npy",
+                            trig.pack_output(got).cpu().numpy())
+                del big, got
 
         if "shards" in plan:
-            tm = make_mesh(1, world)
-            per = 200 // world              # frames a block: 2 s in all
-            cell = stream_cell(synth, 125, 50, 2.0, seed=11)
-            time_sharded_scan(pair_np(cell[:world * 19200]), tm, 4.0)
-            barrier(tm)
-            t0 = time.perf_counter()
-            reset_launches()
-            got = time_sharded_scan(pair_np(cell), tm, 4.0)
-            torch.cuda.synchronize()
-            res["shards_ms"] = 1e3 * (time.perf_counter() - t0)
-            res["shards_launches"] = read_launches()
-            ev = got.track_event.cpu().numpy()      # [t, steps, R]
-            assert ev.shape == (world, 2 * per, 3), ev.shape
-            assert ev.any(axis=(1, 2)).all(), ev.any(axis=(1, 2))
-            assert set(got.cell_id.cpu().numpy()[ev].tolist()) == {125}
-            seam = straddle_stream(synth, world, per)
-            reset_launches()
-            got = time_sharded_scan(pair_np(seam), tm, 4.0)
-            res["shards_launches"] += read_launches()
-            host = trig.unpack_output(trig.pack_output(got))
-            assert host.track_event.any(axis=(1, 2)).all()
-            for shard in range(world - 1):  # the step that crosses the seam
-                assert host.psr[shard, -1, 123 % 3] > 4.0, host.psr[shard, -1]
-                assert host.cell_id[shard, -1, 123 % 3] == 123
-            res["straddle_events"] = int(host.track_event.sum())
-            if backend == "gloo":           # the same call on 4 CPU ranks
-                ref = time_sharded_scan(pair_np(seam),
-                                        make_mesh(1, world, device="cpu"),
-                                        4.0)
-                ref = trig.unpack_output(trig.pack_output(ref))
-                lane = 123 % 3      # the other roots' lanes hold no cell:
-                for f in trig.StepOutput._fields:   # their ids are ties
-                    g, r = getattr(host, f), getattr(ref, f)
-                    if f in trig._F32_FIELDS:
-                        np.testing.assert_allclose(g[..., lane], r[..., lane],
-                                                   rtol=1e-3, atol=1e-3)
-                    elif f in ("cell_id", "normal_cp"):
-                        assert (g[..., lane] == r[..., lane]).all(), f
-                    else:
-                        assert (g == r).all(), f
-                res["straddle_equals_cpu_ranks"] = True
+            with plan_clock("shards"):
+                tm = make_mesh(1, world)
+                per = 200 // world              # frames a block: 2 s in all
+                cell = stream_cell(synth, 125, 50, 2.0, seed=11)
+                time_sharded_scan(pair_np(cell[:world * 19200]), tm, 4.0)
+                barrier(tm)
+                seam = straddle_stream(synth, world, per)
+                reset_launches()
+                t0 = time.perf_counter()
+                got = time_sharded_scan(pair_np(cell), tm, 4.0)
+                torch.cuda.synchronize()
+                res["shards_ms"] = 1e3 * (time.perf_counter() - t0)
+                ev = got.track_event.cpu().numpy()      # [t, steps, R]
+                assert ev.shape == (world, 2 * per, 3), ev.shape
+                assert ev.any(axis=(1, 2)).all(), ev.any(axis=(1, 2))
+                assert set(got.cell_id.cpu().numpy()[ev].tolist()) == {125}
+                got = time_sharded_scan(pair_np(seam), tm, 4.0)
+                torch.cuda.synchronize()
+                res["launches"]["shards"] = read_launches()
+                host = trig.unpack_output(trig.pack_output(got))
+                assert host.track_event.any(axis=(1, 2)).all()
+                for shard in range(world - 1):  # the step across the seam
+                    assert host.psr[shard, -1, 123 % 3] > 4.0, \
+                        host.psr[shard, -1]
+                    assert host.cell_id[shard, -1, 123 % 3] == 123
+                res["straddle_events"] = int(host.track_event.sum())
+                if backend == "gloo":           # the same call on CPU ranks
+                    ref = time_sharded_scan(pair_np(seam),
+                                            make_mesh(1, world, device="cpu"),
+                                            4.0)
+                    ref = trig.unpack_output(trig.pack_output(ref))
+                    lane = 123 % 3      # the other roots' lanes hold no cell:
+                    for f in trig.StepOutput._fields:  # their ids are ties
+                        g, r = getattr(host, f), getattr(ref, f)
+                        if f in trig._F32_FIELDS:
+                            np.testing.assert_allclose(
+                                g[..., lane], r[..., lane], rtol=1e-3,
+                                atol=1e-3)
+                        elif f in ("cell_id", "normal_cp"):
+                            assert (g[..., lane] == r[..., lane]).all(), f
+                        else:
+                            assert (g == r).all(), f
+                    res["straddle_equals_cpu_ranks"] = True
 
         if "stream" in plan:
-            sigs = np.load(out / "sigs.npy")
-            band8 = np.load(out / "band8.npy")
-            wchunk = 19200 * 8
+            with plan_clock("stream"):
+                sigs = np.load(out / "sigs.npy")
+                band8 = np.load(out / "band8.npy")
+                wchunk = 19200 * 8
 
-            def timed(make, feed):
-                feed(make(), 20)                        # warm-up
-                t = make()
-                barrier(ch)
-                t0 = time.perf_counter()
-                reset_launches()
-                got = feed(t, None)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                return t, got, {
-                    "wall_s": wall, "launches": read_launches(),
-                    "dispatches": t.timer.summary()["scan"]["count"],
-                    "in_flight": t.max_in_flight, "rows": t.n,
-                    "stages": {k: [v["mean_ms"], v["count"]]
-                               for k, v in t.timer.summary().items()}}
+                def timed(key, make, feed):
+                    feed(make(), 20)                    # warm-up
+                    t = make()
+                    barrier(ch)
+                    t0 = time.perf_counter()
+                    got = counted(key, lambda: feed(t, None))
+                    res[key] = {
+                        "wall_s": time.perf_counter() - t0,
+                        "dispatches": t.timer.summary()["scan"]["count"],
+                        "in_flight": t.max_in_flight, "rows": t.n,
+                        "stages": {k: [v["mean_ms"], v["count"]]
+                                   for k, v in t.timer.summary().items()}}
+                    return t, got
 
-            m, got, res["multi"] = timed(
-                lambda: MultiTrigger(8, psr_threshold=4, transport="i16",
-                                     mesh=ch),
-                lambda t, n: feed_all(t, sigs, 0, n and n * 19200))
-            merged = gather_events(got, ch)
-            assert {n for n, _ in got} <= set(m.local_streams)
+                m, got = timed(
+                    "multi",
+                    lambda: MultiTrigger(8, psr_threshold=4, transport="i16",
+                                         mesh=ch),
+                    lambda t, n: feed_all(t, sigs, 0, n and n * 19200))
+                merged = gather_events(got, ch)
+                assert {n for n, _ in got} <= set(m.local_streams)
 
-            def feed_w(t, n):
-                stop = band8.size if n is None else n * wchunk
-                got = []
-                for i in range(0, stop, wchunk):
-                    got += t.process_wide(band8[i:i + wchunk])
-                return got + t.flush()
+                def feed_w(t, n):
+                    stop = band8.size if n is None else n * wchunk
+                    got = []
+                    for i in range(0, stop, wchunk):
+                        got += t.process_wide(band8[i:i + wchunk])
+                    return got + t.flush()
 
-            w, got, res["wide"] = timed(
-                lambda: WidebandTrigger(RATE8, CENTERS8, psr_threshold=4,
-                                        transport="f32", mesh=ch), feed_w)
-            wide_merged = gather_events(got, ch)
-            # a sharded checkpoint at a cut, for a trigger without a mesh
-            cut = 45 * 19200
-            late = late_streams(sigs, cut)
-            first = MultiTrigger(8, psr_threshold=4, transport="f32", mesh=ch)
-            before = gather_events(feed_all(first, late, 0, cut), ch)
-            first.save_state(str(out / "sharded.npz"))
-            if rank == 0:
-                (out / "stream_events.json").write_text(json.dumps({
-                    "multi": tagged(merged), "wide": tagged(wide_merged),
-                    "before": tagged(before)}))
+                w, got = timed(
+                    "wide",
+                    lambda: WidebandTrigger(RATE8, CENTERS8, psr_threshold=4,
+                                            transport="f32", mesh=ch),
+                    feed_w)
+                wide_merged = gather_events(got, ch)
+                # a sharded checkpoint at a cut, for a trigger without a mesh
+                cut = 45 * 19200
+                late = late_streams(sigs, cut)
+                first = MultiTrigger(8, psr_threshold=4, transport="f32",
+                                     mesh=ch)
+                before = gather_events(feed_all(first, late, 0, cut), ch)
+                first.save_state(str(out / "sharded.npz"))
+                if rank == 0:
+                    (out / "stream_events.json").write_text(json.dumps({
+                        "multi": tagged(merged), "wide": tagged(wide_merged),
+                        "before": tagged(before)}))
+                del sigs, band8
+
+        if "monitor" in plan:
+            with plan_clock("monitor"):
+                blocks = np.load(out / "monitor8.npy")
+                wide = np.load(out / "monitor_wide.npy")
+                ratio = int(round(RATE8 / RATE1))
+                save_at = mesh_save_calls(MONITOR8_CHUNK)
+                for key, make, calls in (
+                        ("multi", lambda ev: MultiTrigger(
+                            len(CELLS8), psr_threshold=4, transport="i4",
+                            mesh=ch, **tagged_log(ev)),
+                         lambda t: multi_calls(t, blocks, MONITOR8_BLOCKS,
+                                               MONITOR8_CHUNK)),
+                        ("wide", lambda ev: WidebandTrigger(
+                            RATE8, CENTERS8, transport="i8", psr_threshold=4,
+                            mesh=ch, **tagged_log(ev)),
+                         lambda t: wide_calls(t, wide, MONITOR8_BLOCKS,
+                                              MONITOR8_CHUNK * ratio))):
+                    events = []
+                    t = make(events)
+                    t.REBASE_AT = MESH_REBASE_AT
+                    ckpt = out / f"ckpt_{key}"
+                    ckpt.mkdir(exist_ok=True)
+                    barrier(ch)
+                    rec = counted(f"monitor {key}", lambda: mesh_monitor(
+                        t, calls(t), save_at, ckpt, events))
+                    assert all(t.tracking[i].any() for i in range(t.n)), \
+                        (key, t.tracking)
+                    if key == "wide":
+                        assert t._wabs == len(rec["rebases"]) \
+                            * MESH_REBASE_AT * ratio, (t._wabs, rec)
+                    rec.update(events=events, streams=list(t.local_streams),
+                               samples=MONITOR8_BLOCKS * blocks.shape[1])
+                    parts = meshmod.all_gather_object(rec, ch, "ch")
+                    if rank == 0:
+                        (out / f"monitor_{key}.json").write_text(
+                            json.dumps(parts))
+                    res[f"monitor_{key}"] = {k: rec[k] for k in
+                                             ("rebases", "wall_s")}
+                    del t
+                del blocks, wide
+
+        if "paced" in plan:
+            with plan_clock("paced"):
+                blocks = np.load(out / "monitor8.npy")
+                chunk = 38400
+                per = blocks.shape[1] // chunk
+
+                def chunks(k):
+                    i = (k % per) * chunk
+                    return list(blocks[:, i:i + chunk])
+
+                n_chunks = int(round(PACED_S * RATE1)) // chunk
+                runs = {}
+                for key in ("paced", "flat-out"):
+                    events = []
+                    m = MultiTrigger(len(CELLS8), psr_threshold=4,
+                                     transport="i4", mesh=ch,
+                                     **tagged_log(events))
+                    barrier(ch)
+                    if key == "paced":
+                        r = counted(key, lambda: paced_monitor(
+                            m, lambda k: m.process_all(chunks(k)), n_chunks,
+                            chunk, PACED_LIMIT_RANKS))
+                    else:
+                        for k in range(n_chunks):
+                            m.process_all(chunks(k))
+                        m.flush()
+                    runs[key] = events
+                assert runs["paced"] == runs["flat-out"] and events, runs
+                assert r["held"] > 0, "the backlog gate never held this rank"
+                lag = r["lags"]
+                res["paced"] = dict(
+                    held=r["held"], drained=r["drained"], polls=r["polls"],
+                    depth=r["depth"], wall_s=r["wall"], calls=len(lag),
+                    events=len(events),
+                    lag_ms=[float(np.median(lag)),
+                            float(np.percentile(lag, 99)), float(lag.max())])
+                del blocks
+
+        if "scan128" in plan:
+            with plan_clock("scan128"):
+                big, _ = big_buffer(dev, synth, trig)
+                glob = tuple(x.repeat(world, 1) for x in big)
+                del big
+                res["scan128"], got = timed_scans("scan 128 a rank", glob)
+                if rank == 0:
+                    np.save(out / f"scan128_ch{world}.npy",
+                            trig.pack_output(got).cpu().numpy())
+                del glob, got
         (out / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1660,21 +1929,34 @@ def one_process_scan(big, channel_scan, trig) -> tuple:
     return trig.pack_output(out).cpu().numpy(), min(times[1:])
 
 
-def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
-                  want, cells_big, one_ms: float, smi: str, trig) -> list:
-    """`channel_scan` of 128 x 100 over `world` ranks (and what else `plan`
-    names): the gathered output against `want` (one process's packed
-    output), a detection in every channel, and the times.  returns what
-    each rank measured."""
-    ranks = run_ranks(world, out, backend, plan)
-    for r in ranks:
-        for key in ("scan_launches", "shards_launches"):
-            if key in r:
-                r[key] = Counts(r[key])
-        for key in ("multi", "wide"):
-            if key in r:
-                r[key]["launches"] = Counts(r[key]["launches"])
-    got = trig.unpack_output(np.load(out / f"scan_ch{world}.npy"))
+def rank_paths(ranks: list, label: str) -> dict:
+    """Every rank's launches, path by path, as {path: Counts}: each rank x
+    plan is a path of its own, counted from 0 just before it."""
+    return {f"{label}: rank {r['rank']}/{r['world']} {name}": Counts(n)
+            for r in ranks for name, n in r["launches"].items()}
+
+
+def ranks_line(ranks: list, smi: str) -> None:
+    """Each rank's host resources and, plan by plan, its wall and CPU
+    seconds: a CPU/wall ratio near the rank's threads means it was busy on
+    the host all along, far below one that it waited (for the card, for
+    the others)."""
+    r0 = ranks[0]
+    log(f"{len(ranks)} ranks ({r0['backend']}): CPUs a rank may run on "
+        f"{sorted({r['cpus'] for r in ranks})}, torch threads "
+        f"{sorted({r['threads'] for r in ranks})}; a plan's wall / CPU s a "
+        f"rank: " + "; ".join(
+            f"{name} " + ", ".join(f"{r['plans'][name]['wall_s']:.2f} / "
+                                   f"{r['plans'][name]['cpu_s']:.2f}"
+                                   for r in ranks)
+            for name in r0["plans"]) + f" [{smi}]")
+
+
+def check_scan(got_path: pathlib.Path, want, cells_big, trig) -> None:
+    """A gathered channel_scan output (packed, on disk) against one
+    process's: field for field, and a detection in every channel (channel
+    c carries cell cells_big[c % 128])."""
+    got = trig.unpack_output(np.load(got_path))
     ref = trig.unpack_output(want)
     for f in trig.StepOutput._fields:
         g, r = getattr(got, f), getattr(ref, f)
@@ -1682,29 +1964,154 @@ def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
             np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4, err_msg=f)
         else:
             assert (g == r).all(), f
-    for c, cid in enumerate(cells_big):
+    for c in range(got.track_event.shape[1]):
+        cid = cells_big[c % len(cells_big)]
         s = np.nonzero(got.track_event[:, c, cid % 3])[0]
         assert s.size and got.cell_id[s[0], c, cid % 3] == cid, (c, cid)
-    call = max(min(r["scan_call_ms"]) for r in ranks)
-    engine = max(min(r["scan_engine_ms"]) for r in ranks)
-    full = max(min(r["scan_full_ms"]) for r in ranks)
-    assert all(ran(r["scan_launches"]) for r in ranks), \
-        [r["scan_launches"] for r in ranks]
+
+
+def scan_on_ranks(world: int, out: pathlib.Path, backend: str, plan: str,
+                  want, cells_big, one_ms: float, smi: str, trig) -> list:
+    """`channel_scan` of 128 x 100 over `world` ranks (and what else `plan`
+    names): the gathered output against `want` (one process's packed
+    output), a detection in every channel, and the times.  returns what
+    each rank measured."""
+    ranks = run_ranks(world, out, backend, plan)
+    check_scan(out / f"scan_ch{world}.npy", want, cells_big, trig)
+    call = max(min(r["scan"]["call_ms"]) for r in ranks)
+    engine = max(min(r["scan"]["engine_ms"]) for r in ranks)
+    full = max(min(r["scan"]["full_ms"]) for r in ranks)
     log(f"channel_scan 128 x 100 over ch = {world} ({ranks[0]['backend']}, "
         f"{'one card' if backend == 'gloo' else 'a card a rank'}): gathered "
         f"output = one process's field for field, detections in all "
         f"{C_BIG} channels; per rank (best of 3, ms) engine alone "
-        + ", ".join(f"{min(r['scan_engine_ms']):.1f}" for r in ranks)
+        + ", ".join(f"{min(r['scan']['engine_ms']):.1f}" for r in ranks)
         + "; whole call with the gather "
-        + ", ".join(f"{min(r['scan_call_ms']):.1f}" for r in ranks)
+        + ", ".join(f"{min(r['scan']['call_ms']):.1f}" for r in ranks)
         + f"; slowest rank {engine:.1f} / {call:.1f} ms against "
         f"{one_ms:.1f} ms in one process: {one_ms / engine:.2f}x / "
         f"{one_ms / call:.2f}x the channels/s; every rank all {C_BIG} "
         f"channels at the same time (engine alone) "
-        + ", ".join(f"{min(r['scan_full_ms']):.1f}" for r in ranks)
+        + ", ".join(f"{min(r['scan']['full_ms']):.1f}" for r in ranks)
         + f" ms: {world * one_ms / full:.2f}x the channels/s; "
-        f"{ranks[0]['scan_launches']} kernel launches a rank [{smi}]")
+        f"{Counts(ranks[0]['launches']['scan'])} kernel launches a rank "
+        f"[{smi}]")
     return ranks
+
+
+def scan128_line(ranks, out, want128, cells_big, smi, trig) -> None:
+    """Phase 20 (c) / 21: channel_scan with 128 channels a rank (C = 128 x
+    world) against one process's channel_scan of the same C."""
+    world = len(ranks)
+    want, one_ms = want128[world]
+    check_scan(out / f"scan128_ch{world}.npy", want, cells_big, trig)
+    call = max(min(r["scan128"]["call_ms"]) for r in ranks)
+    engine = max(min(r["scan128"]["engine_ms"]) for r in ranks)
+    log(f"channel_scan(mesh=) with 128 channels a rank, C = "
+        f"{C_BIG * world} x {STEPS_BIG} over ch = {world} "
+        f"({ranks[0]['backend']}, "
+        f"{'one card' if ranks[0]['backend'] == 'gloo' else 'a card a rank'}"
+        f"): gathered output = one process's field for field, a detection in "
+        f"all {C_BIG * world} channels; per rank (best of 3, ms) engine "
+        f"alone " + ", ".join(f"{min(r['scan128']['engine_ms']):.1f}"
+                             for r in ranks)
+        + "; whole call with the gather "
+        + ", ".join(f"{min(r['scan128']['call_ms']):.1f}" for r in ranks)
+        + f"; slowest rank {engine:.1f} / {call:.1f} ms against {one_ms:.1f}"
+        f" ms for C = {C_BIG * world} in one process: {one_ms / call:.2f}x "
+        f"the channels/s [{smi}]")
+
+
+def by_stream(events: list) -> list:
+    """Events in `gather_events`' order: stably by stream."""
+    return sorted(events, key=lambda e: e[0])
+
+
+def check_mesh_monitor(out: pathlib.Path, mon8: dict, MultiTrigger,
+                       WidebandTrigger, dev, smi: str) -> None:
+    """Phase 20 (a) / 21 against phase 9c: for each class the ranks'
+    events, merged, equal 9c's one-process events stream by stream; every
+    rank rebased as often as 9c's run; a checkpoint from around the ranks'
+    rebases (the first at which the ranks had rebased differently, else the
+    first that settled a rebase) loaded into a trigger without a mesh and
+    continued to the end publishes the rest.  Prints each rank's rebase
+    calls, samples/s a stream and the checkpoints' times."""
+    ratio = int(round(RATE8 / RATE1))
+    for key in ("multi", "wide"):
+        parts = json.loads((out / f"monitor_{key}.json").read_text())
+        want = by_stream(mon8[key]["events"])
+        got = by_stream([e for p in parts for e in p["events"]])
+        assert got == want, (key, got, want)
+        assert [len(p["rebases"]) for p in parts] \
+            == [mon8[key]["rebases"]] * len(parts), \
+            (key, [p["rebases"] for p in parts])
+        saves = list(zip(*[p["saves"] for p in parts]))
+        settled = [s for s in saves if any(
+            [s[0]["call"], "save"] in p["rebases"] for p in parts)]
+        pick = next((s for s in saves
+                     if len({x["rebases_before"] for x in s}) > 1),
+                    settled[0] if settled else saves[0])
+        c = pick[0]["call"]
+        before = by_stream([e for p, x in zip(parts, pick)
+                            for e in p["events"][:x["events"]]])
+        events = []
+        if key == "multi":
+            t = MultiTrigger(len(CELLS8), psr_threshold=4, transport="i4",
+                             device=dev, **tagged_log(events))
+            calls = multi_calls(t, mon8["blocks"], MONITOR8_BLOCKS,
+                                MONITOR8_CHUNK)
+        else:
+            t = WidebandTrigger(RATE8, CENTERS8, transport="i8",
+                                psr_threshold=4, device=dev,
+                                **tagged_log(events))
+            calls = wide_calls(t, mon8["band"], MONITOR8_BLOCKS,
+                               MONITOR8_CHUNK * ratio)
+        t.REBASE_AT = MESH_REBASE_AT
+        t.load_state(str(out / f"ckpt_{key}" / f"{c}.npz"))
+        for i, call in enumerate(calls):
+            if i >= c:
+                call()
+        t.flush()
+        resumed = json.loads(json.dumps(events))
+        assert by_stream(before + resumed) == want, (key, c)
+        save_ms = [x["ms"] for s in saves for x in s]
+        log(f"{key} over ch = {len(parts)}: gathered events = phase 9c's "
+            f"one process's ({len(want)}) stream by stream through "
+            f"{mon8[key]['rebases']} rebases on every rank, every stream "
+            f"tracked at the end"
+            + (", _wabs the rebases' deltas on every rank" if key == "wide"
+               else "")
+            + "; rebase calls a rank (s: in a save_state) "
+            + "; ".join(" ".join(f"{c_}{'s' if w == 'save' else ''}"
+                                 for c_, w in p["rebases"]) for p in parts)
+            + f"; M samples/s a stream a rank "
+            + ", ".join(f"{p['samples'] / p['wall_s'] / 1e6:.3f}"
+                        for p in parts)
+            + f" (9c, one process, pipeline=0: both runs "
+            f"{mon8[key]['wall']:.1f} s); {len(saves)} checkpoints at calls "
+            f"{saves[0][0]['call']}-{saves[-1][0]['call']} around the first "
+            f"two rebases, save_state median / max "
+            f"{np.median(save_ms):.1f} / {max(save_ms):.1f} ms; the one at "
+            f"call {c} (ranks' rebases before it "
+            f"{[x['rebases_before'] for x in pick]}) resumed without a mesh "
+            f"publishes the rest ({len(resumed)} events) [{smi}]")
+
+
+def paced_line(ranks: list, smi: str) -> None:
+    """Phase 20 (b): each rank's paced producer."""
+    log(f"paced MultiTrigger(8, i4, mesh=) over ch = {len(ranks)}: a "
+        f"producer thread a rank, {PACED_S:.0f} s at 1.92 Msps a stream in "
+        f"38400-sample chunks, {PACED_BURST} at once; the monitor pulled "
+        f"nothing while backlog > {PACED_LIMIT_RANKS}, polling for at most "
+        f"{PACED_HOLD_S * 1e3:.0f} ms; per rank held / drained / calls "
+        + ", ".join(f"{r['paced']['held']} / {r['paced']['drained']} / "
+                    f"{r['paced']['calls']}" for r in ranks)
+        + "; lag median / p99 / max ms "
+        + ", ".join("{:.1f} / {:.1f} / {:.1f}".format(*r["paced"]["lag_ms"])
+                    for r in ranks)
+        + "; queue depth at most "
+        + ", ".join(str(r["paced"]["depth"]) for r in ranks)
+        + f"; each rank's events equal the same samples fed flat-out [{smi}]")
 
 
 def shards_line(ranks, smi: str) -> None:
@@ -1717,19 +2124,30 @@ def shards_line(ranks, smi: str) -> None:
         f"({ranks[0]['straddle_events']} events)"
         + (", integers equal to the same call on CPU ranks"
            if ranks[0].get("straddle_equals_cpu_ranks") else "")
-        + f"; {ranks[0]['shards_launches']} kernel launches a rank [{smi}]")
+        + f"; {Counts(ranks[0]['launches']['shards'])} kernel launches a "
+        f"rank [{smi}]")
 
 
-def cards_phase(out, want, cells_big, one_ms, smi, trig) -> Counts:
-    """Phase 21 (`out` holds sigs.npy and band8.npy).  returns the kernel
-    launches of all ranks (empty when the phase did not start)."""
+def write_rank_inputs(tmp: pathlib.Path, sigs, band8, mon8) -> None:
+    """What the ranks of phases 20 and 21 read."""
+    np.save(tmp / "sigs.npy", np.stack(sigs))
+    np.save(tmp / "band8.npy", band8)
+    np.save(tmp / "monitor8.npy", mon8["blocks"])
+    np.save(tmp / "monitor_wide.npy", mon8["band"])
+
+
+def cards_phase(out, want, cells_big, one_ms, want128, mon8, smi, trig,
+                MultiTrigger, WidebandTrigger, dev) -> dict:
+    """Phase 21 (`out` holds the ranks' inputs).  returns {path: launches}
+    of every rank x plan (empty when the phase did not start)."""
     n = torch.cuda.device_count()
     if n < 2:
         log(f"one rank per card over NCCL: not started, this machine has "
             f"{n} card; this run says nothing of NCCL between cards")
-        return Counts()
+        return {}
     world = 4 if n >= 4 else 2
-    ranks = scan_on_ranks(world, out, "nccl", "scan,shards,stream", want,
+    ranks = scan_on_ranks(world, out, "nccl",
+                          "scan,shards,stream,monitor,scan128", want,
                           cells_big, one_ms, smi, trig)
     shards_line(ranks, smi)
     merged = json.loads((out / "stream_events.json").read_text())
@@ -1745,9 +2163,52 @@ def cards_phase(out, want, cells_big, one_ms, smi, trig) -> Counts:
         + ", ".join(f"{3840000 / r['wide']['wall_s'] / 1e6:.3f}"
                     for r in ranks)
         + f"; a checkpoint written through NCCL's all_gather_object [{smi}]")
-    return sum(r["scan_launches"] + r["shards_launches"]
-               + r["multi"]["launches"] + r["wide"]["launches"]
-               for r in ranks)
+    check_mesh_monitor(out, mon8, MultiTrigger, WidebandTrigger, dev, smi)
+    scan128_line(ranks, out, want128, cells_big, smi, trig)
+    ranks_line(ranks, smi)
+    return rank_paths(ranks, "a card a rank (NCCL)")
+
+
+def mesh_phase(tmp: pathlib.Path, want128, cells_big, mon8, smi, trig,
+               MultiTrigger, WidebandTrigger, dev, want=None,
+               one_ms=None) -> tuple:
+    """Phase 20: this script as 2 and then 4 gloo ranks sharing the card
+    (`tmp` holds their inputs).  With `want` (one process's 128 x 100
+    output) and its ms, every plan; without, the plans of the mesh monitor
+    and of 128 channels a rank alone (`--mesh`).  Checks (a)-(c) and
+    returns ({path: launches} of every rank x plan, the 2 ranks' and the 4
+    ranks' records)."""
+    if want is not None:
+        ranks2 = scan_on_ranks(2, tmp, "gloo", "scan,scan128", want,
+                               cells_big, one_ms, smi, trig)
+        ranks4 = scan_on_ranks(4, tmp, "gloo",
+                               "scan,shards,stream,monitor,paced,scan128",
+                               want, cells_big, one_ms, smi, trig)
+    else:
+        ranks2 = run_ranks(2, tmp, "gloo", "scan128")
+        ranks4 = run_ranks(4, tmp, "gloo", "monitor,paced,scan128")
+    for ranks in (ranks2, ranks4):
+        scan128_line(ranks, tmp, want128, cells_big, smi, trig)
+    check_mesh_monitor(tmp, mon8, MultiTrigger, WidebandTrigger, dev, smi)
+    paced_line(ranks4, smi)
+    for ranks in (ranks2, ranks4):
+        ranks_line(ranks, smi)
+    label = "ranks on one card (gloo)"
+    return ({**rank_paths(ranks2, label), **rank_paths(ranks4, label)},
+            ranks2, ranks4)
+
+
+def one_process_scans(big, worlds, channel_scan, trig) -> dict:
+    """{world: one process's channel_scan of the 128-channel buffer
+    repeated `world` times (packed output, best of 3 ms)}: what 128
+    channels a rank over `world` ranks is held to."""
+    out = {}
+    for world in worlds:
+        glob = tuple(x.repeat(world, 1) for x in big)
+        out[world] = one_process_scan(glob, channel_scan, trig)
+        del glob
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1756,6 +2217,7 @@ def main() -> int:
     only_cards = sys.argv[1:2] == ["--cards"]
     only_kernels = sys.argv[1:2] == ["--kernels"]
     only_monitor = sys.argv[1:2] == ["--monitor"]
+    only_mesh = sys.argv[1:2] == ["--mesh"]
     parent_tree = None
     if "--parent" in sys.argv:
         parent_tree = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
@@ -1815,27 +2277,40 @@ def main() -> int:
             f"from a temporary copy as parent_ltetrigger_tpu_torch, its "
             f"library built by its own build.py in {parent_s:.2f} s")
 
-    if only_cards:      # phases 1, 2 and 21 alone
+    if only_cards or only_mesh:     # phases 1, 2, 9c and 21 (or 20) alone
         big, cells_big = big_buffer(dev, synth, trig)
         want, one_ms = one_process_scan(big, channel_scan, trig)
+        want128 = one_process_scans(big, (2, 4), channel_scan, trig)
         del big
+        _, mon8 = monitor8(synth, dev, MultiTrigger, WidebandTrigger)
         with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
-            np.save(f"{tmp}/sigs.npy", np.stack(
-                [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
-                 for i, (cid, prb) in enumerate(CELLS8)]))
-            np.save(f"{tmp}/band8.npy", band_of_eight(dev, synth))
-            n = cards_phase(pathlib.Path(tmp), want, cells_big, one_ms, smi,
-                            trig)
+            tmp = pathlib.Path(tmp)
+            write_rank_inputs(
+                tmp, [stream_cell(synth, cid, prb, 2.0, seed=20 + i)
+                      for i, (cid, prb) in enumerate(CELLS8)],
+                band_of_eight(dev, synth), mon8)
+            if only_mesh:
+                paths, _, _ = mesh_phase(tmp, want128, cells_big, mon8, smi,
+                                         trig, MultiTrigger, WidebandTrigger,
+                                         dev)
+            else:
+                paths = cards_phase(tmp, want, cells_big, one_ms, want128,
+                                    mon8, smi, trig, MultiTrigger,
+                                    WidebandTrigger, dev)
         log(smi)
-        ok = bool(n) and ran(n)
+        ok = bool(paths) and all(ran(n) for n in paths.values())
+        if only_mesh:
+            assert ok, paths
+            print(json.dumps({"ok": None, "partial": "mesh"}))
+            return 0
         print(json.dumps({"ok": ok, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return 0 if ok else 1
 
     if only_monitor:    # phases 1, 2, 9a-9e and 9d's idle share alone
-        paths, block = monitor_phases(dev, smi, synth, api, trig,
-                                      MultiTrigger, WidebandTrigger)
+        paths, block, _ = monitor_phases(dev, smi, synth, api, trig,
+                                         MultiTrigger, WidebandTrigger)
         for path, n in paths.items():
             assert ran(n), f"{path}: {n}"
         paced_idle_share(api, block, dev, smi)
@@ -2560,8 +3035,8 @@ def main() -> int:
 
     # ---- 9a-9e. the long-running monitor ----
     t0 = time.perf_counter()
-    monitor_paths, soak = monitor_phases(dev, smi, synth, api, trig,
-                                         MultiTrigger, WidebandTrigger)
+    monitor_paths, soak, mon8 = monitor_phases(dev, smi, synth, api, trig,
+                                               MultiTrigger, WidebandTrigger)
     path_launches.update(monitor_paths)
     log(f"phases 9a-9e in {time.perf_counter() - t0:.1f} s")
 
@@ -3018,19 +3493,24 @@ def main() -> int:
         del mirror
 
     # ---- 20. several ranks on the one card (gloo), then 21. a card a rank
+    t20 = time.perf_counter()
     want, one_ms = one_process_scan(big, channel_scan, trig)
     log(f"channel_scan 128 x 100 in one process: {one_ms:.1f} ms (best of "
         f"3; phase 5's scan_engine: {ms_dispatch:.1f} ms) [{smi}]")
+    want128 = one_process_scans(big, (2, 4), channel_scan, trig)
+    log("channel_scan of the 128 x 100 buffer repeated, in one process: "
+        + ", ".join(f"C = {C_BIG * w} {ms:.1f} ms"
+                    for w, (_, ms) in want128.items()) + f" (best of 3) "
+        f"[{smi}]")
     big = small = win = None            # room for the ranks' own buffers
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=kbuild.BUILD_DIR) as tmp:
         tmp = pathlib.Path(tmp)
-        np.save(tmp / "sigs.npy", np.stack(sigs))
-        np.save(tmp / "band8.npy", band8)
-        ranks2 = scan_on_ranks(2, tmp, "gloo", "scan", want, cells_big,
-                               one_ms, smi, trig)
-        ranks4 = scan_on_ranks(4, tmp, "gloo", "scan,shards,stream", want,
-                               cells_big, one_ms, smi, trig)
+        write_rank_inputs(tmp, sigs, band8, mon8)
+        rank_launches, ranks2, ranks4 = mesh_phase(
+            tmp, want128, cells_big, mon8, smi, trig, MultiTrigger,
+            WidebandTrigger, dev, want, one_ms)
+        path_launches.update(rank_launches)
         shards_line(ranks4, smi)
         merged = json.loads((tmp / "stream_events.json").read_text())
         merged = {k: [(n, f) for n, f in v] for k, v in merged.items()}
@@ -3064,24 +3544,23 @@ def main() -> int:
                 + f" [{smi}]")
         log("a checkpoint saved by the 4 ranks at the cut resumes in a "
             "trigger without a mesh: the 4 late cells, same scores")
-        path_launches["ranks on one card (all ranks)"] = sum(
-            r["scan_launches"] for r in ranks2) + sum(
-            r["scan_launches"] + r["shards_launches"] + r["multi"]["launches"]
-            + r["wide"]["launches"] for r in ranks4)
         rank_table = {
             "one_process_ms": one_ms,
-            "ch2": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks2],
-                    "full_ms": [min(r["scan_full_ms"]) for r in ranks2],
-                    "call_ms": [min(r["scan_call_ms"]) for r in ranks2],
-                    "launches": [r["scan_launches"]["mf"] for r in ranks2]},
-            "ch4": {"engine_ms": [min(r["scan_engine_ms"]) for r in ranks4],
-                    "full_ms": [min(r["scan_full_ms"]) for r in ranks4],
-                    "call_ms": [min(r["scan_call_ms"]) for r in ranks4],
-                    "launches": [r["scan_launches"]["mf"] for r in ranks4]}}
-        n_cards = cards_phase(tmp, want, cells_big, one_ms, smi, trig)
-        if n_cards:
-            path_launches["a card a rank (NCCL, all ranks)"] = n_cards
-    del band8, late8
+            "one_process_128_a_rank_ms": {w: ms for w, (_, ms)
+                                          in want128.items()},
+            **{f"ch{len(rs)}": {
+                **{k: [min(r["scan"][k]) for r in rs]
+                   for k in ("engine_ms", "full_ms", "call_ms")},
+                "launches": [r["launches"]["scan"]["mf"] for r in rs],
+                "call_128_a_rank_ms": [min(r["scan128"]["call_ms"])
+                                       for r in rs]}
+               for rs in (ranks2, ranks4)}}
+        log(f"phase 20 (one card, 2 and 4 ranks) in "
+            f"{time.perf_counter() - t20:.1f} s")
+        path_launches.update(cards_phase(
+            tmp, want, cells_big, one_ms, want128, mon8, smi, trig,
+            MultiTrigger, WidebandTrigger, dev))
+    del band8, late8, mon8
     torch.cuda.empty_cache()
 
     # ---- 22-28. the example tools (examples/*_torch.py) ----

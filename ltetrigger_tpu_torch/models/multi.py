@@ -162,10 +162,18 @@ class MultiTrigger(api._StreamPipeline):
     # mesh: a checkpoint saved on one mesh loads unsharded, on another mesh
     # shape and in the JAX class, and the other way round.
     def _settle(self) -> None:
-        """Flush, then trim the host buffers to the drained position, so
-        that `base` is the same on every rank."""
+        """Flush, trim the host buffers to the drained position and make
+        every rebase that is due, so that `base` and the grid are the same
+        on every rank.  A rank rebases when its own buffer passes
+        REBASE_AT, at the start of a call, so ranks whose calls differ
+        rebase on different calls, and a checkpoint may fall between them;
+        after the trim every rank's buffer starts at the same stream sample,
+        and rebasing while `_base >= REBASE_AT` leaves every rank with the
+        same coordinates."""
         self.flush()
         self._trim_drained()
+        while self._base >= self.REBASE_AT:
+            self._maybe_rebase()
 
     def _gather_checkpoint(self, per_stream: dict) -> dict:
         """Every stream's `cfo_bins`, carry and `per_stream` entries,

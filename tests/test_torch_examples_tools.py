@@ -37,6 +37,7 @@ sys.path.insert(0, str(EXAMPLES))
 import bench_attrib_torch  # noqa: E402
 import bench_stream_torch  # noqa: E402
 import bench_sweep_torch  # noqa: E402
+import in_flight_torch  # noqa: E402
 import make_snr_curve_torch  # noqa: E402
 import pass_b_stamps_torch  # noqa: E402
 import seam_sweep_torch  # noqa: E402
@@ -292,7 +293,8 @@ def test_stamp_block_spans():
 
 # ------------------------------------------- imports and the device rule --
 MODULES = ("bench_sweep_torch", "bench_attrib_torch", "bench_stream_torch",
-           "seam_sweep_torch", "make_snr_curve_torch", "pass_b_stamps_torch")
+           "seam_sweep_torch", "make_snr_curve_torch", "pass_b_stamps_torch",
+           "in_flight_torch")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -319,7 +321,8 @@ print("ok")
     ("bench_stream_torch", ["0.1"]),
     ("seam_sweep_torch", ["--trials", "1"]),
     ("make_snr_curve_torch", ["--trials", "1"]),
-    ("pass_b_stamps_torch", ["--steps", "4"])])
+    ("pass_b_stamps_torch", ["--steps", "4"]),
+    ("in_flight_torch", ["--procs", "0"])])
 def test_device_cuda_raises_without_a_card(module, argv, tmp_path):
     assert not torch.cuda.is_available()
     main = sys.modules[module].main
@@ -329,3 +332,19 @@ def test_device_cuda_raises_without_a_card(module, argv, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main([*argv, *extra, "--device", "cuda"])
     assert not list(tmp_path.iterdir())         # nothing was written
+
+
+def test_in_flight_counts_calls_on_the_cpu(capsys):
+    """examples/in_flight_torch.py on the CPU: every call counted, none
+    returns with an output in flight (an output on the CPU is there when
+    its dispatch returns), one half-frame of read-ahead stands after each
+    38400-sample call."""
+    in_flight_torch.main(["--device", "cpu", "--procs", "0", "--seconds",
+                          "0.2"])
+    got = json.loads(capsys.readouterr().out)
+    assert got["process"] == "alone" and got["device"] == "cpu"
+    assert got["Trigger 38400"]["calls"] == 10
+    assert got["MultiTrigger(8) 38400"]["calls"] == 10
+    for key in ("Trigger 38400", "Trigger 307200", "MultiTrigger(8) 38400"):
+        assert got[key]["in_flight"] == 0, key
+        assert got[key]["backlog_max"] == 9600, key
