@@ -49,6 +49,7 @@ from ..ltecore.constants import (DEFAULT_PSR_THRESHOLD,
                                  MIN_PSR_THRESHOLD, SAMPLE_RATE)
 from ..runtime.cellstore import Cell, CellStore, cell_from_step
 from ..runtime.chunkbuf import ChunkBuffer
+from ..utils import profiling
 from ..utils.profiling import StageTimer
 from ..ops import correlate, cplx, resample
 from ..ops.kernels import matched_filter
@@ -185,8 +186,9 @@ def search(iq: np.ndarray, sample_rate: float,
     """
     dev = resolve_device(device)
     psr_threshold = ensure_safe_threshold(psr_threshold)
-    timer = timer if timer is not None else StageTimer()
-    with timer.stage("prepare"):
+    # stages are timed only for a caller's timer; spans name them anyway
+    stage = timer.stage if timer is not None else profiling.span
+    with stage("prepare"):
         total = int(max_seconds * SAMPLE_RATE)
         buffer = _prepare_buffer(iq, sample_rate, repeat_to=total, device=dev)
         if cfo_search_range > 0:
@@ -204,12 +206,12 @@ def search(iq: np.ndarray, sample_rate: float,
     steps_done = 0
     while steps_done < max_steps:
         n = min(chunk_steps, max_steps - steps_done)
-        with timer.stage("scan"):
+        with stage("scan"):
             state, out = trig.scan_engine(buffer, state, n, psr_threshold,
                                           track_after, track_every,
                                           n_valid=n_valid)
         steps_done += n
-        with timer.stage("drain"):
+        with stage("drain"):
             # one device-to-host copy per chunk
             host = trig.unpack_output(trig.pack_output(out).cpu())
             stop = _drain_events(host, store, found)
@@ -590,6 +592,7 @@ class _StreamPipeline:
                     or len(self._outstanding) > self.pipeline + 2):
                 return False
 
+        profiling.next_call()
         with self.timer.stage("prep"):
             self._trim_drained()
             # sync the device mirror up to what this dispatch can reach
@@ -707,8 +710,9 @@ class _StreamPipeline:
                            self._cfo_bins.reshape(self._batch),
                            self._dev_base), self.cfo_search_range)
         # the winning bin and its PSR in one copy: one host wait a probe
-        best, psr = _host(torch.stack([best.to(torch.float32),
-                                       per_bin.amax(dim=-1)]))
+        both = torch.stack([best.to(torch.float32), per_bin.amax(dim=-1)])
+        with profiling.span("wait.probe"):
+            best, psr = _host(both)
         hit = idle & (psr.reshape(self.n) > PROBE_MIN_PSR)
         deltas = np.where(hit, best.reshape(self.n) - self._cfo_bins,
                           0).astype(np.int32)

@@ -25,7 +25,7 @@ extraction exists only because TPU gathers are slow.  The engine reads the
 buffer as if it were zero-extended past its end, as the JAX engine pads it.
 
 Host syncs (each waits for the card and reads a value; `host_syncs` counts
-them by name):
+them by name, and each read is the span "wait.<name>"):
   * "grid": scan_pass reads the grid start from `state.pos`, unless the
     caller passes it as `grid0` (the streaming classes do);
   * "emit", "capture": _mib_postpass gates on `any step emitted` and `any
@@ -34,6 +34,14 @@ them by name):
     (two reads);
   * "probe": the streaming classes (models/api.py) read the CFO probe's
     best bin.
+
+Spans (utils/profiling.span; recorded only while a torch.profiler runs):
+"scan_pass" (passes A+B) with "pass_a" / "pass_b" a group; "pass_c" with
+"pass_c.sync" (slot-0 extraction, CFO, CP, SSS), "pass_c.capture",
+"pass_c.decode" and "pass_c.events"; the waits above; "readback.pack",
+"readback.copy" and "readback.unpack" in pack_output / unpack_output,
+whose "wait.drain" (a stream synchronize made only while tracing, counted
+in no `host_syncs`) parts the card's drain from the copy.
 
 All three N_id_2 hypotheses are a trailing [R] axis; channels are leading
 batch axes of the buffer and of every state field.
@@ -60,6 +68,7 @@ from ..ops import correlate, cplx, dft, pbch, sync
 from ..ops.device import resolve_device
 from ..ops.kernels import cfo_ring, matched_filter, pass_b, tti_chain
 from ..ops.kernels.cfo_ring import ring_mean as _ring_mean
+from ..utils.profiling import span, tracing
 
 R = 3                                   # N_id_2 hypotheses
 LOOKBACK = PSS_SYMBOL_START             # 832 samples of history before grid0
@@ -256,37 +265,43 @@ def scan_pass(buffer: cplx.Pair, state: TriggerState, n_steps: int,
         device, which waits for all work queued before this call.
     returns: (final_state, RawStepOutput stacked [n_steps, ...]).
     """
-    n = buffer[0].shape[-1]
-    if n_valid is None:
-        n_valid = n
-    batch = math.prod(buffer[0].shape[:-1]) or 1
-    g = _pick_group(n_steps, batch)
-    if grid0 is None:
-        host_syncs["grid"] += 1
-        grid0 = int(state.pos.reshape(-1)[0])
-    thresh = float(np.float32(psr_threshold))
+    with span("scan_pass", device=buffer[0].device):
+        n = buffer[0].shape[-1]
+        if n_valid is None:
+            n_valid = n
+        batch = math.prod(buffer[0].shape[:-1]) or 1
+        g = _pick_group(n_steps, batch)
+        if grid0 is None:
+            host_syncs["grid"] += 1
+            with span("wait.grid"):
+                grid0 = int(state.pos.reshape(-1)[0])
+        thresh = float(np.float32(psr_threshold))
 
-    groups = []
-    for gi in range(n_steps // g):
-        lo = grid0 + gi * g * HALF_FRAME_LENGTH
-        # active steps (grid + 9728 <= n_valid) are a prefix of the group
-        n_active = min(g, max(0, (n_valid - correlate.V2_WINDOW - lo)
-                              // HALF_FRAME_LENGTH + 1))
-        if n_active == 0:           # no active step: no pass A, no launch
-            groups.append(pass_b.idle_rows(state, g))
-            continue
-        power = _group_power(buffer, lo, g)          # [.., g, 75, R, 128]
-        state, rows = pass_b.scan_group(state, power, lo, n_active, thresh,
-                                        track_after, track_every)
-        groups.append(rows)
-    # the grid of every step from host integers: no copy to the device
-    steps = torch.arange(n_steps, dtype=torch.int32, device=buffer[0].device)
-    grids = grid0 + HALF_FRAME_LENGTH * steps
-    raw = RawStepOutput(
-        grid=grids, active=grids + correlate.V2_WINDOW <= n_valid,
-        **{f: c[0] if len(c) == 1 else torch.cat(c) for f, c in
-           zip(RawStepOutput._fields[2:], zip(*groups))})
-    return state, raw
+        groups = []
+        for gi in range(n_steps // g):
+            lo = grid0 + gi * g * HALF_FRAME_LENGTH
+            # active steps (grid + 9728 <= n_valid) are a prefix of the group
+            n_active = min(g, max(0, (n_valid - correlate.V2_WINDOW - lo)
+                                  // HALF_FRAME_LENGTH + 1))
+            if n_active == 0:       # no active step: no pass A, no launch
+                groups.append(pass_b.idle_rows(state, g))
+                continue
+            with span("pass_a"):
+                power = _group_power(buffer, lo, g)  # [.., g, 75, R, 128]
+            with span("pass_b"):
+                state, rows = pass_b.scan_group(state, power, lo, n_active,
+                                                thresh, track_after,
+                                                track_every)
+            groups.append(rows)
+        # the grid of every step from host integers: no copy to the device
+        steps = torch.arange(n_steps, dtype=torch.int32,
+                             device=buffer[0].device)
+        grids = grid0 + HALF_FRAME_LENGTH * steps
+        raw = RawStepOutput(
+            grid=grids, active=grids + correlate.V2_WINDOW <= n_valid,
+            **{f: c[0] if len(c) == 1 else torch.cat(c) for f, c in
+               zip(RawStepOutput._fields[2:], zip(*groups))})
+        return state, raw
 
 
 # ======================================================================
@@ -399,40 +414,44 @@ def _decode_candidates(state0: TriggerState, buffer: cplx.Pair,
 
     cand_* : [..., R, K]; returns per-candidate verdicts [..., R, K] and the
     updated TTI accumulator carry."""
-    k = cand_cell.shape[-1]
-    batch = cand_cell.shape[:-2]
+    with span("pass_c.decode"):
+        k = cand_cell.shape[-1]
+        batch = cand_cell.shape[:-2]
 
-    # slot-1 extraction + capture-time CFO rotation (slot-1 sample n had
-    # aligned index 960 + n)
-    slot1 = (_read(buffer[0], cand_start, SLOT_LENGTH),
-             _read(buffer[1], cand_start, SLOT_LENGTH))  # [.., R, K, 960]
-    slot1 = cfo_ops.cfo_rotate(slot1, cand_freq, SLOT_LENGTH)
+        # slot-1 extraction + capture-time CFO rotation (slot-1 sample n had
+        # aligned index 960 + n)
+        slot1 = (_read(buffer[0], cand_start, SLOT_LENGTH),
+                 _read(buffer[1], cand_start, SLOT_LENGTH))  # [.., R, K, 960]
+        slot1 = cfo_ops.cfo_rotate(slot1, cand_freq, SLOT_LENGTH)
 
-    # one CP pipeline when every valid candidate agrees (host sync), both
-    # otherwise
-    host_syncs["cp"] += 2
-    all_norm = bool(torch.all(cand_cp | ~valid))
-    all_ext = bool(torch.all((~cand_cp) | ~valid))
-    if all_norm or all_ext:
-        contrib = pbch.pbch_quarter_llrs_slot1(slot1, cand_cell, all_norm)
-    else:
-        both = pbch.quarter_llrs_both_cp(slot1, cand_cell)  # [.., 2, 3,4,120]
-        contrib = torch.where(cand_cp[..., None, None, None],
-                              both[..., 1, :, :, :], both[..., 0, :, :, :])
+        # one CP pipeline when every valid candidate agrees (host sync), both
+        # otherwise
+        host_syncs["cp"] += 2
+        with span("wait.cp"):
+            all_norm = bool(torch.all(cand_cp | ~valid))
+        with span("wait.cp"):
+            all_ext = bool(torch.all((~cand_cp) | ~valid))
+        if all_norm or all_ext:
+            contrib = pbch.pbch_quarter_llrs_slot1(slot1, cand_cell, all_norm)
+        else:
+            # [.., 2, 3, 4, 120]
+            both = pbch.quarter_llrs_both_cp(slot1, cand_cell)
+            contrib = torch.where(cand_cp[..., None, None, None],
+                                  both[..., 1, :, :, :], both[..., 0, :, :, :])
 
-    # TTI soft-combining chain over the K slots: 4 TTI-phase hypotheses,
-    # phase h restarts its accumulator at quarter 0; a restart (loss or
-    # cell-id change) clears every phase (ops/kernels/tti_chain.py)
-    accs, qs, acc, n, cell = tti_chain.tti_chain(
-        state0.llr_acc.reshape(batch + (R, 3, 4, 120)), state0.mib_n,
-        state0.mib_cell, contrib, cand_fresh, cand_cell, valid, combine)
-    # accs [.., R, K, 3, 4, 120], qs [.., R, K, 4]: hypothesis index
-    # port * 4 + phase reports quarter qs[.., phase]
-    res = pbch.search_and_unpack(accs.reshape(batch + (R, k, 12, 120)),
-                                 qs.tile((1,) * (qs.ndim - 1) + (3,)))
-    found = res["found"] & valid
-    return (found, res["nof_prb"], res["nof_ports"], res["phich_ext"],
-            res["phich_res"], res["sfn_offset"], acc, n, cell)
+        # TTI soft-combining chain over the K slots: 4 TTI-phase hypotheses,
+        # phase h restarts its accumulator at quarter 0; a restart (loss or
+        # cell-id change) clears every phase (ops/kernels/tti_chain.py)
+        accs, qs, acc, n, cell = tti_chain.tti_chain(
+            state0.llr_acc.reshape(batch + (R, 3, 4, 120)), state0.mib_n,
+            state0.mib_cell, contrib, cand_fresh, cand_cell, valid, combine)
+        # accs [.., R, K, 3, 4, 120], qs [.., R, K, 4]: hypothesis index
+        # port * 4 + phase reports quarter qs[.., phase]
+        res = pbch.search_and_unpack(accs.reshape(batch + (R, k, 12, 120)),
+                                     qs.tile((1,) * (qs.ndim - 1) + (3,)))
+        found = res["found"] & valid
+        return (found, res["nof_prb"], res["nof_ports"], res["phich_ext"],
+                res["phich_res"], res["sfn_offset"], acc, n, cell)
 
 
 def _mib_postpass(state0: TriggerState, final: TriggerState,
@@ -455,151 +474,172 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
     if k is None:
         k = s if s <= K_STEP_CAP else K_CANDIDATES
     dev = raw.psr.device
-    batch = final.score.shape[:-1]
-    shape = raw.psr.shape
-    zero_i = torch.zeros(shape, dtype=torch.int32, device=dev)
-    zero_b = torch.zeros(shape, dtype=torch.bool, device=dev)
+    with span("pass_c", device=dev):
+        batch = final.score.shape[:-1]
+        shape = raw.psr.shape
+        zero_i = torch.zeros(shape, dtype=torch.int32, device=dev)
+        zero_b = torch.zeros(shape, dtype=torch.bool, device=dev)
 
-    if do_extract is None:
-        host_syncs["emit"] += 1
-        do_extract = bool(raw.emit.any())
-    if not do_extract:                  # nothing emitted
-        mean0 = _ring_mean(state0.cfo_ring, state0.cfo_count)
-        mid_final = final
-        track_event, lost_e = zero_b, zero_b
-        nof_prb = nof_ports = phich_ext = phich_res = sfn_offset = zero_i
-        cell_id_o, normal_cp_o = zero_i, zero_b
-        cfo_mean = mean0[None].expand(shape)
-    else:
-        # ---- slot-0 tail of every step: buf[grid + peak - 384 : +SEG] ----
-        gridx = raw.grid.to(torch.int64).reshape((s,) + (1,) * (len(batch)
-                                                                + 1))
-        st0 = gridx + raw.peak - LOOKBACK      # slot-0 start [S, .., R]
-        seg = (_read(buffer[0], st0 + SEG_OFF, SEG, lead=1),
-               _read(buffer[1], st0 + SEG_OFF, SEG, lead=1))
-
-        # ---- CFO estimate (on the PSS symbol) + ring recurrence ----
-        reps = cfo_ops.on_device("time", str(dev))
-        pss_sym = cplx.index(seg, (..., slice(SEG - SYMBOL_SZ, SEG)))
-        est = cfo_ops.cfo_estimate(pss_sym, reps)       # [S, .., R]
-        push = raw.emit & raw.tracking
-        if s <= MOVING_AVG_SZ:
-            ring_f, count_f, cfo_mean = _ring_series(
-                state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
-        else:           # dispatches longer than the ring: step by step
-            ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
-                state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
-
-        # ---- rotate, CP detect, SSS ----
-        freq = torch.where(raw.tracking, -cfo_mean / SYMBOL_SZ, 0.0)
-        sf = cfo_ops.cfo_rotate(seg, freq, SEG_OFF)
-
-        # ---- PSS LS channel estimate of the last tracked step ----
-        tt_c = torch.arange(s, device=dev).reshape((s,) + (1,) *
-                                                   (push.ndim - 1))
-        last_push = torch.where(push, tt_c, -1).amax(dim=0)   # [.., R]
-        lp = torch.clamp(last_push, min=0)[None, ..., None]
-        sym = tuple(torch.take_along_dim(
-            comp[..., SEG - SYMBOL_SZ:], lp, dim=0)[0] for comp in sf)
-        chv = cplx.mul_conj(dft.dft_sync(sym),
-                            cfo_ops.on_device("freq", str(dev)))
-        chest_f = torch.where((last_push >= 0)[..., None, None],
-                              torch.stack(chv, dim=-1), state0.chest)
-
-        normal_cp = sync.detect_cp(sf, end=SEG)
-        nid2 = torch.arange(R, device=dev)
-        n_id_1, sub5 = sync.sss_decode(sf, nid2, normal_cp, end=SEG)
-        sss_valid = n_id_1 >= 0
-        cell_id = (3 * torch.clamp(n_id_1, min=0) + nid2).to(torch.int32)
-
-        # ---- capture selection ----
-        gatherable = st0 + 2 * SLOT_LENGTH <= data_valid
-        want_cap, slot, fresh, cnt, pf_f, overflow = _capture_chain(
-            state0, raw, sss_valid, sub5, cell_id, gatherable, k)
-        onehot = (slot[..., None] == torch.arange(k, device=dev)) \
-            & want_cap[..., None]                       # [S, .., R, K]
-
-        def scatter(v):
-            return torch.where(onehot, v[..., None], 0).sum(dim=0)
-
-        cand_cell = scatter(cell_id).to(torch.int32)
-        cand_cp = scatter(normal_cp.to(torch.int32)) > 0
-        cand_fresh = scatter(fresh.to(torch.int32)) > 0
-        cand_start = scatter(st0 + SLOT_LENGTH)
-        cand_freq = scatter(freq)
-        valid = torch.arange(k, device=dev) < cnt[..., None]
-
-        if do_decode is None:
-            host_syncs["capture"] += 1
-            do_decode = bool(cnt.sum() > 0)
-        if do_decode:                   # any candidate captured
-            (found, prb_rk, ports_rk, pext_rk, pres_rk, sfn_rk,
-             acc_f, n_f, cell_f) = _decode_candidates(
-                state0, buffer, cand_start, cand_freq, cand_cell, cand_cp,
-                cand_fresh, valid, combine)
+        if do_extract is None:
+            host_syncs["emit"] += 1
+            with span("wait.emit"):
+                do_extract = bool(raw.emit.any())
+        if not do_extract:                  # nothing emitted
+            mean0 = _ring_mean(state0.cfo_ring, state0.cfo_count)
+            mid_final = final
+            track_event, lost_e = zero_b, zero_b
+            nof_prb = nof_ports = phich_ext = phich_res = sfn_offset = zero_i
+            cell_id_o, normal_cp_o = zero_i, zero_b
+            cfo_mean = mean0[None].expand(shape)
         else:
-            zi = torch.zeros(batch + (R, k), dtype=torch.int32, device=dev)
-            found = torch.zeros(batch + (R, k), dtype=torch.bool, device=dev)
-            prb_rk = ports_rk = pext_rk = pres_rk = sfn_rk = zi
-            acc_f = state0.llr_acc
-            n_f, cell_f = state0.mib_n, state0.mib_cell
+            with span("pass_c.sync"):
+                # -- slot-0 tail of each step: buf[grid + peak - 384 : +SEG] --
+                gridx = raw.grid.to(torch.int64).reshape(
+                    (s,) + (1,) * (len(batch) + 1))
+                st0 = gridx + raw.peak - LOOKBACK  # slot-0 start [S, .., R]
+                seg = (_read(buffer[0], st0 + SEG_OFF, SEG, lead=1),
+                       _read(buffer[1], st0 + SEG_OFF, SEG, lead=1))
 
-        # ---- publish once per epoch (epoch = cumulative fresh count) ----
-        fresh_eff = cand_fresh & valid
-        e = torch.cumsum(fresh_eff.to(torch.int32), dim=-1)     # [.., R, K]
-        same_ep = e[..., :, None] == e[..., None, :]
-        ks = torch.arange(k, device=dev)
-        j_lt_k = ks[None, :] < ks[:, None]                      # [K(k), K(j)]
-        prior = torch.any(same_ep & j_lt_k & found[..., None, :], dim=-1)
-        is_pub = found & ~prior & ~(state0.published[..., None] & (e == 0))
+                # ---- CFO estimate (on the PSS symbol) + ring recurrence --
+                reps = cfo_ops.on_device("time", str(dev))
+                pss_sym = cplx.index(seg, (..., slice(SEG - SYMBOL_SZ, SEG)))
+                est = cfo_ops.cfo_estimate(pss_sym, reps)       # [S, .., R]
+                push = raw.emit & raw.tracking
+                if s <= MOVING_AVG_SZ:
+                    ring_f, count_f, cfo_mean = _ring_series(
+                        state0.cfo_ring, state0.cfo_count, est, push,
+                        raw.lost)
+                else:   # dispatches longer than the ring: step by step
+                    ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
+                        state0.cfo_ring, state0.cfo_count, est, push,
+                        raw.lost)
 
-        # ---- map candidate verdicts back to step space ----
-        track_event = torch.any(onehot & is_pub[None], dim=-1)  # [S, .., R]
+                # ---- rotate, CP detect, SSS ----
+                freq = torch.where(raw.tracking, -cfo_mean / SYMBOL_SZ, 0.0)
+                sf = cfo_ops.cfo_rotate(seg, freq, SEG_OFF)
 
-        def fld(a):
-            x = torch.where(onehot, a[None], 0).sum(dim=-1)
-            return torch.where(track_event, x, 0).to(torch.int32)
+                # ---- PSS LS channel estimate of the last tracked step ----
+                tt_c = torch.arange(s, device=dev).reshape(
+                    (s,) + (1,) * (push.ndim - 1))
+                last_push = torch.where(push, tt_c, -1).amax(dim=0)  # [..R]
+                lp = torch.clamp(last_push, min=0)[None, ..., None]
+                sym = tuple(torch.take_along_dim(
+                    comp[..., SEG - SYMBOL_SZ:], lp, dim=0)[0] for comp in sf)
+                chv = cplx.mul_conj(dft.dft_sync(sym),
+                                    cfo_ops.on_device("freq", str(dev)))
+                chest_f = torch.where((last_push >= 0)[..., None, None],
+                                      torch.stack(chv, dim=-1), state0.chest)
 
-        mid_final = final._replace(
-            cfo_ring=ring_f, cfo_count=count_f,
-            llr_acc=acc_f.reshape(batch + (R, 12, 120)),
-            mib_n=n_f, mib_cell=cell_f, pending_fresh=pf_f,
-            cap_overflow=state0.cap_overflow + overflow, chest=chest_f)
-        lost_e = raw.lost
-        nof_prb, nof_ports, phich_ext, phich_res, sfn_offset = (
-            fld(prb_rk), fld(ports_rk), fld(pext_rk), fld(pres_rk),
-            fld(sfn_rk))
-        cell_id_o = cell_id
-        normal_cp_o = normal_cp.expand(shape)
+                normal_cp = sync.detect_cp(sf, end=SEG)
+                nid2 = torch.arange(R, device=dev)
+                n_id_1, sub5 = sync.sss_decode(sf, nid2, normal_cp, end=SEG)
+                sss_valid = n_id_1 >= 0
+                cell_id = (3 * torch.clamp(n_id_1, min=0) + nid2).to(
+                    torch.int32)
 
-    # ---- published/drop state machine over steps ----
-    # p[s] = (p[s-1] & ~lost[s]) | track[s]: the latest of the last track
-    # and the last loss decides (a track wins a tie)
-    t, l = track_event, lost_e
-    tt = torch.arange(s, device=dev).reshape((s,) + (1,) * (t.ndim - 1))
-    last_t = _cummax(torch.where(t, tt, -1))
-    last_l = _cummax(torch.where(l, tt, -1))
-    p0 = state0.published[None]
-    p_incl = torch.where((last_t < 0) & (last_l < 0), p0, last_t >= last_l)
-    p_before = torch.cat([p0.expand_as(p_incl[:1]), p_incl[:-1]], dim=0)
-    drop_event = l & p_before
-    id0 = state0.pub_cell_id[None]
-    id_incl = torch.where(
-        last_t >= 0,
-        torch.take_along_dim(cell_id_o, torch.clamp(last_t, min=0), dim=0),
-        id0)
-    id_before = torch.cat([id0.expand_as(id_incl[:1]), id_incl[:-1]], dim=0)
+            with span("pass_c.capture"):
+                # ---- capture selection ----
+                gatherable = st0 + 2 * SLOT_LENGTH <= data_valid
+                want_cap, slot, fresh, cnt, pf_f, overflow = _capture_chain(
+                    state0, raw, sss_valid, sub5, cell_id, gatherable, k)
+                onehot = (slot[..., None] == torch.arange(k, device=dev)) \
+                    & want_cap[..., None]                   # [S, .., R, K]
 
-    final_state = mid_final._replace(published=p_incl[-1],
-                                     pub_cell_id=id_incl[-1])
-    out = StepOutput(
-        track_event=track_event, drop_event=drop_event,
-        drop_cell_id=id_before, cell_id=cell_id_o, nof_prb=nof_prb,
-        nof_ports=nof_ports, phich_ext=phich_ext, phich_res=phich_res,
-        sfn_offset=sfn_offset, normal_cp=normal_cp_o, psr=raw.psr,
-        score=raw.score, tracking=raw.tracking, cfo_mean=cfo_mean,
-        consumed=raw.consumed)
-    return final_state, out
+                def scatter(v):
+                    return torch.where(onehot, v[..., None], 0).sum(dim=0)
+
+                cand_cell = scatter(cell_id).to(torch.int32)
+                cand_cp = scatter(normal_cp.to(torch.int32)) > 0
+                cand_fresh = scatter(fresh.to(torch.int32)) > 0
+                cand_start = scatter(st0 + SLOT_LENGTH)
+                cand_freq = scatter(freq)
+                valid = torch.arange(k, device=dev) < cnt[..., None]
+
+            if do_decode is None:
+                host_syncs["capture"] += 1
+                with span("wait.capture"):
+                    do_decode = bool(cnt.sum() > 0)
+            if do_decode:                   # any candidate captured
+                (found, prb_rk, ports_rk, pext_rk, pres_rk, sfn_rk,
+                 acc_f, n_f, cell_f) = _decode_candidates(
+                    state0, buffer, cand_start, cand_freq, cand_cell,
+                    cand_cp, cand_fresh, valid, combine)
+            else:
+                zi = torch.zeros(batch + (R, k), dtype=torch.int32,
+                                 device=dev)
+                found = torch.zeros(batch + (R, k), dtype=torch.bool,
+                                    device=dev)
+                prb_rk = ports_rk = pext_rk = pres_rk = sfn_rk = zi
+                acc_f = state0.llr_acc
+                n_f, cell_f = state0.mib_n, state0.mib_cell
+
+        with span("pass_c.events"):
+            if do_extract:
+                # ---- publish once per epoch (cumulative fresh count) ----
+                fresh_eff = cand_fresh & valid
+                e = torch.cumsum(fresh_eff.to(torch.int32), dim=-1)
+                same_ep = e[..., :, None] == e[..., None, :]  # [.., R, K, K]
+                ks = torch.arange(k, device=dev)
+                j_lt_k = ks[None, :] < ks[:, None]            # [K(k), K(j)]
+                prior = torch.any(same_ep & j_lt_k & found[..., None, :],
+                                  dim=-1)
+                is_pub = found & ~prior & ~(state0.published[..., None]
+                                            & (e == 0))
+
+                # ---- map candidate verdicts back to step space ----
+                track_event = torch.any(onehot & is_pub[None], dim=-1)
+
+                def fld(a):
+                    x = torch.where(onehot, a[None], 0).sum(dim=-1)
+                    return torch.where(track_event, x, 0).to(torch.int32)
+
+                mid_final = final._replace(
+                    cfo_ring=ring_f, cfo_count=count_f,
+                    llr_acc=acc_f.reshape(batch + (R, 12, 120)),
+                    mib_n=n_f, mib_cell=cell_f, pending_fresh=pf_f,
+                    cap_overflow=state0.cap_overflow + overflow,
+                    chest=chest_f)
+                lost_e = raw.lost
+                nof_prb, nof_ports, phich_ext, phich_res, sfn_offset = (
+                    fld(prb_rk), fld(ports_rk), fld(pext_rk), fld(pres_rk),
+                    fld(sfn_rk))
+                cell_id_o = cell_id
+                normal_cp_o = normal_cp.expand(shape)
+
+            # ---- published/drop state machine over steps ----
+            # p[s] = (p[s-1] & ~lost[s]) | track[s]: the latest of the last
+            # track and the last loss decides (a track wins a tie)
+            t, l = track_event, lost_e
+            tt = torch.arange(s, device=dev).reshape((s,) + (1,) *
+                                                     (t.ndim - 1))
+            last_t = _cummax(torch.where(t, tt, -1))
+            last_l = _cummax(torch.where(l, tt, -1))
+            p0 = state0.published[None]
+            p_incl = torch.where((last_t < 0) & (last_l < 0), p0,
+                                 last_t >= last_l)
+            p_before = torch.cat([p0.expand_as(p_incl[:1]), p_incl[:-1]],
+                                 dim=0)
+            drop_event = l & p_before
+            id0 = state0.pub_cell_id[None]
+            id_incl = torch.where(
+                last_t >= 0,
+                torch.take_along_dim(cell_id_o, torch.clamp(last_t, min=0),
+                                     dim=0),
+                id0)
+            id_before = torch.cat([id0.expand_as(id_incl[:1]), id_incl[:-1]],
+                                  dim=0)
+
+            final_state = mid_final._replace(published=p_incl[-1],
+                                             pub_cell_id=id_incl[-1])
+            out = StepOutput(
+                track_event=track_event, drop_event=drop_event,
+                drop_cell_id=id_before, cell_id=cell_id_o, nof_prb=nof_prb,
+                nof_ports=nof_ports, phich_ext=phich_ext,
+                phich_res=phich_res, sfn_offset=sfn_offset,
+                normal_cp=normal_cp_o, psr=raw.psr, score=raw.score,
+                tracking=raw.tracking, cfo_mean=cfo_mean,
+                consumed=raw.consumed)
+        return final_state, out
 
 
 _BOOL_FIELDS = ("track_event", "drop_event", "normal_cp", "tracking")
@@ -610,24 +650,32 @@ def pack_output(out: StepOutput) -> torch.Tensor:
     """StepOutput -> ONE [n_steps, ..., 15] float32 tensor, so the host
     drain is one device-to-host copy.  Every field fits exactly in f32
     (ids <= 503, sfn_offset <= 1020, bools)."""
-    return torch.stack([getattr(out, f).to(torch.float32)
-                        for f in StepOutput._fields], dim=-1)
+    with span("readback.pack"):
+        return torch.stack([getattr(out, f).to(torch.float32)
+                            for f in StepOutput._fields], dim=-1)
 
 
 def unpack_output(arr) -> StepOutput:
     """Inverse of pack_output, into host numpy arrays."""
-    a = arr.cpu().numpy() if isinstance(arr, torch.Tensor) \
-        else np.asarray(arr)
-    kw = {}
-    for i, f in enumerate(StepOutput._fields):
-        col = a[..., i]
-        if f in _BOOL_FIELDS:
-            kw[f] = col > 0.5
-        elif f in _F32_FIELDS:
-            kw[f] = col.astype(np.float32)
-        else:
-            kw[f] = col.astype(np.int32)
-    return StepOutput(**kw)
+    if isinstance(arr, torch.Tensor):
+        if arr.is_cuda and tracing():
+            with span("wait.drain"):
+                torch.cuda.current_stream(arr.device).synchronize()
+        with span("readback.copy"):
+            a = arr.cpu().numpy()
+    else:
+        a = np.asarray(arr)
+    with span("readback.unpack"):
+        kw = {}
+        for i, f in enumerate(StepOutput._fields):
+            col = a[..., i]
+            if f in _BOOL_FIELDS:
+                kw[f] = col > 0.5
+            elif f in _F32_FIELDS:
+                kw[f] = col.astype(np.float32)
+            else:
+                kw[f] = col.astype(np.int32)
+        return StepOutput(**kw)
 
 
 def unpack_output_tensors(packed: torch.Tensor) -> StepOutput:

@@ -43,6 +43,7 @@ from ..ltecore.constants import DEFAULT_TRACK_AFTER, DEFAULT_TRACK_EVERY
 from ..models import trigger as trig
 from ..ops import correlate, cplx
 from ..ops.device import resolve_device
+from ..utils import profiling
 from . import mesh as meshmod
 from .mesh import Mesh
 
@@ -95,6 +96,8 @@ def channel_scan(buffers: cplx.Pair, n_steps: int, psr_threshold: float,
     Fresh states start at the static grid origin, so the engine gets the
     grid start as a host integer and does not read it back from the device;
     with a carried state it does (one host sync, `trigger.host_syncs`).
+    Each call starts a new call id of the spans (`utils.profiling`) and
+    opens the span "channel_scan".
     """
     c = buffers[0].shape[0]
     lo, hi = (0, c) if mesh is None else mesh.local_slice(c)
@@ -104,20 +107,24 @@ def channel_scan(buffers: cplx.Pair, n_steps: int, psr_threshold: float,
         dev = buffers[0].device
     else:
         dev = resolve_device(device)
-    local = tuple(_rows(b, lo, hi, dev) for b in buffers)
-    fresh = states is None
-    if fresh:
-        states = trig.init_state(batch=(hi - lo,), device=local[0].device)
-    elif mesh is not None:
-        states = trig.TriggerState(*(s[lo:hi].to(local[0].device)
-                                     for s in states))
-    states, out = trig.scan_engine(local, states, n_steps, psr_threshold,
-                                   track_after, track_every, combine=combine,
-                                   grid0=trig.LOOKBACK if fresh else None)
-    if mesh is None:
-        return states, out
-    packed = meshmod.all_gather(trig.pack_output(out), mesh, "ch", dim=1)
-    return _gather_state(states, mesh), trig.unpack_output_tensors(packed)
+    profiling.next_call()
+    with profiling.span("channel_scan", device=dev):
+        local = tuple(_rows(b, lo, hi, dev) for b in buffers)
+        fresh = states is None
+        if fresh:
+            states = trig.init_state(batch=(hi - lo,),
+                                     device=local[0].device)
+        elif mesh is not None:
+            states = trig.TriggerState(*(s[lo:hi].to(local[0].device)
+                                         for s in states))
+        states, out = trig.scan_engine(local, states, n_steps, psr_threshold,
+                                       track_after, track_every,
+                                       combine=combine,
+                                       grid0=trig.LOOKBACK if fresh else None)
+        if mesh is None:
+            return states, out
+        packed = meshmod.all_gather(trig.pack_output(out), mesh, "ch", dim=1)
+        return _gather_state(states, mesh), trig.unpack_output_tensors(packed)
 
 
 # ----------------------------------------------------- time-sharded scan ---

@@ -1,3 +1,3 @@
 """utils: engineering-notation parsing and profiling helpers (the port's
 own copies of ltetrigger_tpu/utils, with torch.profiler behind `trace` and
-`annotate`)."""
+`annotate`, and the port's tracer, `profiling.span`)."""
