@@ -41,7 +41,12 @@ Spans (utils/profiling.span; recorded only while a torch.profiler runs):
 "pass_c.decode" and "pass_c.events"; the waits above; "readback.pack",
 "readback.copy" and "readback.unpack" in pack_output / unpack_output,
 whose "wait.drain" (a stream synchronize made only while tracing, counted
-in no `host_syncs`) parts the card's drain from the copy.
+in no `host_syncs`) parts the card's drain from the copy.  A CUDA input
+to unpack_output is split into its fields on the card ("readback.copy":
+the split's launches and one copy to pinned host memory) and read back as
+numpy views of that pinned buffer ("readback.unpack"); a CPU tensor or a
+numpy array is copied and split on the host.  `readback_paths` counts the
+calls by the path they took ("device" / "host").
 
 All three N_id_2 hypotheses are a trailing [R] axis; channels are leading
 batch axes of the buffer and of every state field.
@@ -85,6 +90,7 @@ SEG_OFF = SLOT_LENGTH - SEG
 _PAD_TAIL = 640
 
 host_syncs = collections.Counter()      # host reads of device values, by name
+readback_paths = collections.Counter()  # unpack_output calls: device / host
 
 
 class TriggerState(NamedTuple):
@@ -656,11 +662,28 @@ def pack_output(out: StepOutput) -> torch.Tensor:
 
 
 def unpack_output(arr) -> StepOutput:
-    """Inverse of pack_output, into host numpy arrays."""
-    if isinstance(arr, torch.Tensor):
-        if arr.is_cuda and tracing():
+    """Inverse of pack_output, into host numpy arrays (int32, float32 and
+    bool fields, each of the packed output's leading shape).
+
+    A CUDA tensor is split into its fields on the card (`split_fields`)
+    and copied once into pinned host memory; the fields are numpy views of
+    that one buffer, which the result alone owns, so no later call changes
+    it.  A CPU tensor or a numpy array is copied and split on the host.
+    `readback_paths` counts the calls by path, "device" or "host"."""
+    if isinstance(arr, torch.Tensor) and arr.is_cuda:
+        readback_paths["device"] += 1
+        if tracing():
             with span("wait.drain"):
                 torch.cuda.current_stream(arr.device).synchronize()
+        with span("readback.copy"):
+            fields = split_fields(arr)
+            host = torch.empty(fields.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(fields)
+        with span("readback.unpack"):
+            return field_views(host.numpy(), arr.shape[:-1])
+    readback_paths["host"] += 1
+    if isinstance(arr, torch.Tensor):
         with span("readback.copy"):
             a = arr.cpu().numpy()
     else:
@@ -676,6 +699,37 @@ def unpack_output(arr) -> StepOutput:
             else:
                 kw[f] = col.astype(np.int32)
         return StepOutput(**kw)
+
+
+# field order of split_fields' buffer: the 4-byte fields, then the bools
+_WORD_FIELDS = tuple(f for f in StepOutput._fields if f not in _BOOL_FIELDS)
+
+
+def split_fields(packed: torch.Tensor) -> torch.Tensor:
+    """pack_output's [..., 15] float32 -> one contiguous uint8 buffer on its
+    device, field-major: the eleven 4-byte fields as int32 rows (psr and
+    cfo_mean bit for bit), then the four bool fields as uint8 rows, each
+    as unpack_output_tensors gives it.  `field_views` reads it back."""
+    t = unpack_output_tensors(packed)
+    words = torch.stack([getattr(t, f).view(torch.int32)
+                         for f in _WORD_FIELDS])
+    flags = torch.stack([getattr(t, f) for f in _BOOL_FIELDS])
+    return torch.cat([words.reshape(-1).view(torch.uint8),
+                      flags.reshape(-1).view(torch.uint8)])
+
+
+def field_views(buf: np.ndarray, shape) -> StepOutput:
+    """split_fields' buffer (as a host uint8 array) -> StepOutput of numpy
+    views of it, each of `shape` (the packed output's leading shape)."""
+    shape = tuple(shape)
+    nw = 4 * math.prod(shape) * len(_WORD_FIELDS)
+    kw = dict(zip(_WORD_FIELDS, buf[:nw].view(np.int32).reshape(
+        (len(_WORD_FIELDS),) + shape)))
+    kw.update(zip(_BOOL_FIELDS, buf[nw:].view(np.bool_).reshape(
+        (len(_BOOL_FIELDS),) + shape)))
+    for f in _F32_FIELDS:
+        kw[f] = kw[f].view(np.float32)
+    return StepOutput(**kw)
 
 
 def unpack_output_tensors(packed: torch.Tensor) -> StepOutput:

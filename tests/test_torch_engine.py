@@ -154,3 +154,45 @@ def test_pack_output_roundtrip():
     for f in trig.StepOutput._fields:
         np.testing.assert_array_equal(back[trig.StepOutput._fields.index(f)],
                                       getattr(out, f).numpy())
+
+
+def _edge_packed(lead, seed):
+    """A packed output of leading shape `lead` holding every edge value:
+    ints -1 / 0 / 503 / 1020, psr and cfo_mean NaN / +-inf / -0.0 beside
+    plain values, bools 0.0 / 1.0."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(lead))
+    cols = []
+    for f in trig.StepOutput._fields:
+        if f in trig._BOOL_FIELDS:
+            vals = [0.0, 1.0]
+        elif f in trig._F32_FIELDS:
+            vals = [np.nan, np.inf, -np.inf, -0.0, 0.0, 4.75, -1.5e-3]
+        else:
+            vals = [-1, 0, 503, 1020]
+        cols.append(rng.permutation(np.resize(np.float32(vals), n)))
+    return torch.from_numpy(np.stack(cols, axis=-1).reshape(lead + (15,)))
+
+
+@pytest.mark.parametrize("lead", [(8, 3), (8, 5, 3), (8, 2, 5, 3), (0, 3)])
+def test_split_fields_views_equal_the_host_split(lead):
+    """The card's split (split_fields, run here on the CPU) read back as
+    views (field_views) gives the host split's arrays byte for byte, in
+    dtype and shape; a CPU tensor and a numpy array take the host path."""
+    packed = _edge_packed(lead, sum(lead))
+    paths = dict(trig.readback_paths)
+    want = trig.unpack_output(packed.numpy())
+    from_tensor = trig.unpack_output(packed)
+    assert trig.readback_paths["host"] == paths.get("host", 0) + 2
+    assert trig.readback_paths["device"] == paths.get("device", 0)
+    buf = trig.split_fields(packed)
+    n = int(np.prod(lead))
+    assert buf.dtype == torch.uint8 and buf.shape == (48 * n,)
+    got = trig.field_views(buf.numpy(), lead)
+    if n:
+        assert np.isnan(want.psr).any() and np.isinf(want.cfo_mean).any()
+        assert np.signbit(want.psr[want.psr == 0]).any()
+    for f, w, g, t in zip(trig.StepOutput._fields, want, got, from_tensor):
+        for a in (g, t):
+            assert a.dtype == w.dtype and a.shape == w.shape == lead, f
+            assert a.tobytes() == w.tobytes(), f

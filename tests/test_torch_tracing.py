@@ -241,6 +241,74 @@ def test_each_hand_kernel_launches_under_its_span_on_the_card(tmp_path):
     assert seen["pb_scan_kernel"] and seen["tti_chain_kernel"] \
         and seen["vit_wa_kernel"], seen
     assert seen["mf_stage_kernel"] or seen["mf_wgmma_kernel"], seen
+    names = collections.Counter(s.name for s in profiling.spans())
+    assert names["wait.drain"] == names["readback.copy"] \
+        == names["readback.unpack"] == 1, names
     spans = {s.name: s for s in profiling.spans()}
     assert 0 < spans["pass_c"].device_ms <= spans["channel_scan"].device_ms
     assert 0 < spans["scan_pass"].device_ms
+
+
+def _owner(a):
+    """The object that owns a numpy array's memory."""
+    while isinstance(a, np.ndarray) and a.base is not None:
+        a = a.base
+    return a
+
+
+def _edges(packed):
+    """`packed` with NaN / +-inf / -0.0 in psr and cfo_mean, and the ints'
+    and bools' edge values, on its first step."""
+    fields = trig.StepOutput._fields
+    p = packed.clone()
+    for f in trig._F32_FIELDS:
+        p[0, ..., fields.index(f)] = torch.tensor(
+            [float("nan"), float("inf"), -float("inf"), -0.0])[
+                torch.arange(p[0, ..., 0].numel()) % 4].reshape(
+                    p.shape[1:-1]).to(p.device)
+    for f, v in (("cell_id", -1), ("sfn_offset", 1020), ("nof_prb", 0)):
+        p[0, ..., fields.index(f)] = v
+    return p
+
+
+def _same_output(a, b):
+    for f, x, y in zip(trig.StepOutput._fields, a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert x.tobytes() == y.tobytes(), f
+
+
+@pytest.mark.cuda
+def test_a_cuda_readback_is_the_host_split_in_a_pinned_buffer_of_its_own():
+    """A CUDA packed output reads back equal to the host split of the same
+    tensor, field for field and dtype for dtype, as views of one pinned
+    buffer that the result owns: a later call changes no earlier result,
+    also once a result between them was dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, out = channel_scan(buffers("cuda", channels=16), STEPS,
+                          CFG["psr_threshold"], device=torch.device("cuda"),
+                          **KW)
+    p1 = _edges(trig.pack_output(out))
+    p2 = p1 + 1.0                       # every int and float moved
+    p2[..., [trig.StepOutput._fields.index(f)
+             for f in trig._BOOL_FIELDS]] = 1.0 - p1[..., [
+                 trig.StepOutput._fields.index(f)
+                 for f in trig._BOOL_FIELDS]]
+    paths = collections.Counter(trig.readback_paths)
+    first = trig.unpack_output(p1)
+    want1 = trig.unpack_output(p1.cpu())
+    _same_output(first, want1)
+    owner = _owner(first.psr)
+    assert isinstance(owner, torch.Tensor) and owner.is_pinned()
+    assert all(_owner(a) is owner for a in first)
+    second = trig.unpack_output(p2)
+    _same_output(second, trig.unpack_output(p2.cpu()))
+    _same_output(first, want1)
+    del second
+    torch.cuda.synchronize()
+    third = trig.unpack_output(p2)
+    _same_output(first, want1)
+    _same_output(third, trig.unpack_output(p2.cpu()))
+    counted = collections.Counter(trig.readback_paths)
+    counted.subtract(paths)
+    assert +counted == {"device": 3, "host": 3}
