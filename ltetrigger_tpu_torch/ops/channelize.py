@@ -20,21 +20,32 @@ exceeding the 16*ratio filter span), and so that only one chunk's rotation
 intermediates live at a time: the JAX package runs the chunks as one
 `lax.scan` of a fixed shape; here they are a Python loop, and the last chunk
 may be short.
+
+Spans (`utils.profiling.span`, recorded only under a profiler): "channelize"
+around `channelize`, "channelize.upload" around a numpy capture's split and
+copy to the device, "channelize.mix" around the chunk loop, the three with a
+CUDA event pair on a card.  `counts` counts the chunks the loop ran
+("chunks", the streaming front end's included) and the bytes `channelize`
+uploaded ("upload_bytes").
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
 import torch
 
 from ..ltecore.constants import SAMPLE_RATE
+from ..utils.profiling import span
 from . import cplx, resample
 from .device import resolve_device, to_device
 
 BLOCK = 9600                 # phase-table block; also the chunk context
 CHUNK_BLOCKS = 32            # blocks of payload per chunk
+
+counts = collections.Counter()   # "chunks" run, "upload_bytes" uploaded
 
 
 def shift_host(x: np.ndarray, sample_rate: float, offset_hz: float,
@@ -97,7 +108,9 @@ def _channelize_scan(xpad: cplx.Pair, origins: torch.Tensor,
     per = chunk // ratio
     trim = BLOCK // ratio
     outs = []
-    for k in range(-(-n_out // per) if n_out > 0 else 0):
+    n_chunks = -(-n_out // per) if n_out > 0 else 0
+    counts["chunks"] += n_chunks
+    for k in range(n_chunks):
         seg = cplx.index(xpad, slice(k * chunk, (k + 1) * chunk + 2 * BLOCK))
         lp = seg[0].shape[-1]
         b0 = k * chunk_blocks
@@ -133,16 +146,20 @@ def channelize(x, sample_rate: float, center_offsets_hz,
     """
     ratio = _ratio(sample_rate)
     offs = np.asarray(list(center_offsets_hz), dtype=np.float64) / sample_rate
-    if isinstance(x, tuple):
-        xp = x
-        dev = xp[0].device
-    else:
-        dev = resolve_device(device)
-        xp = cplx.from_numpy(np.ascontiguousarray(x), dev)
-    n = int(xp[0].shape[-1])
-    xpad = tuple(torch.nn.functional.pad(comp, (BLOCK, BLOCK)) for comp in xp)
-    # block-origin phases, host f64 mod 1 (tiny): xpad[0] is sample -BLOCK
-    origins = _phase_tables(offs, -BLOCK, -(-(n + 2 * BLOCK) // BLOCK))
-    return _channelize_scan(xpad, to_device(origins, dev),
-                            to_device(_ramp_table(offs), dev), ratio,
-                            n // ratio)
+    dev = x[0].device if isinstance(x, tuple) else resolve_device(device)
+    with span("channelize", device=dev):
+        if isinstance(x, tuple):
+            xp = x
+        else:
+            with span("channelize.upload", device=dev):
+                xp = cplx.from_numpy(np.ascontiguousarray(x), dev)
+            counts["upload_bytes"] += 2 * xp[0].numel() * xp[0].element_size()
+        n = int(xp[0].shape[-1])
+        xpad = tuple(torch.nn.functional.pad(comp, (BLOCK, BLOCK))
+                     for comp in xp)
+        # block-origin phases, host f64 mod 1 (tiny): xpad[0] is sample -BLOCK
+        origins = _phase_tables(offs, -BLOCK, -(-(n + 2 * BLOCK) // BLOCK))
+        origins, ramps = to_device(origins, dev), to_device(_ramp_table(offs),
+                                                            dev)
+        with span("channelize.mix", device=dev):
+            return _channelize_scan(xpad, origins, ramps, ratio, n // ratio)

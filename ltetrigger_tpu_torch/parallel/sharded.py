@@ -96,8 +96,9 @@ def channel_scan(buffers: cplx.Pair, n_steps: int, psr_threshold: float,
     Fresh states start at the static grid origin, so the engine gets the
     grid start as a host integer and does not read it back from the device;
     with a carried state it does (one host sync, `trigger.host_syncs`).
-    Each call starts a new call id of the spans (`utils.profiling`) and
-    opens the span "channel_scan".
+    Each call is a call of the spans (`utils.profiling.call`: a new call
+    id unless it runs inside another call) and opens the span
+    "channel_scan".
     """
     c = buffers[0].shape[0]
     lo, hi = (0, c) if mesh is None else mesh.local_slice(c)
@@ -107,8 +108,7 @@ def channel_scan(buffers: cplx.Pair, n_steps: int, psr_threshold: float,
         dev = buffers[0].device
     else:
         dev = resolve_device(device)
-    profiling.next_call()
-    with profiling.span("channel_scan", device=dev):
+    with profiling.call(), profiling.span("channel_scan", device=dev):
         local = tuple(_rows(b, lo, hi, dev) for b in buffers)
         fresh = states is None
         if fresh:

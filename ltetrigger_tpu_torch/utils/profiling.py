@@ -12,9 +12,12 @@ tag_debug taps and commented printfs).
     host start and end (`time.perf_counter_ns`).  Given a CUDA `device`, it
     also records a CUDA event pair on that device's current stream at
     enter and exit (no kernel, copy or set).
-    `next_call()` starts a new call id: `parallel.sharded.channel_scan`
-    and each streaming dispatch do, so the spans until the next call,
-    the readback of the call's output included, carry the call's id.
+    `next_call()` starts a new call id: each streaming dispatch does, so
+    the spans until the next call, the readback of the call's output
+    included, carry the call's id.  `call()` is a call's scope: it starts
+    a new id unless a call is already open on the thread, so that a call
+    made inside another (`parallel.sharded.channel_scan` inside
+    `apps.wideband_scan.scan_band`) is filed under the outer one's id.
     `spans()` returns the records, `reset()` clears them.
   * `annotate(name)` — decorator: a function as a span.
   * `trace(dir)` — the operator's exporter: torch.profiler with CPU and
@@ -145,6 +148,32 @@ def next_call() -> None:
     """Start a new call id for the spans that follow, on every thread."""
     global _call
     _call = next(_calls)
+
+
+class _CallScope:
+    __slots__ = ()
+
+    def __enter__(self):
+        depth = getattr(_local, "calls_open", 0)
+        if depth == 0:
+            next_call()
+        _local.calls_open = depth + 1
+        return None
+
+    def __exit__(self, *exc):
+        _local.calls_open -= 1
+        return False
+
+
+_CALL = _CallScope()
+
+
+def call():
+    """A call of the program: `with call(): ...` starts a new call id
+    unless a call is already open on this thread (then the spans inside
+    carry the open call's id).  The id stays after the scope closes, so the
+    readback of the call's output carries it too."""
+    return _CALL
 
 
 def spans() -> list[Span]:
