@@ -131,7 +131,14 @@ Phases, in order; any failure exits non-zero:
      last decile at most 3x the first's, the cell tracked; the worst call
      of the second half, the backlog, resident memory, flush()'s drain;
  10. the channelizer: 0.25 s of a 30.72 Msps band to 16 centres on the card
-     against the same code on the CPU; CUDA-event time, wide samples/s;
+     (the kernel, csrc/channelize.cu) against the CPU (the plain chunk
+     loop); CUDA-event time, wide samples/s, the kernel's launches; then the
+     kernel against the plain loop on the card at the band's shape (170
+     centres, 61.44 M wide samples of noise, ratio 16) and at this 16-centre
+     one: lanes within TOL and a relative error <= 1e-5, a wrapper call
+     (CUDA events), the call replayed from a CUDA graph and the plain loop,
+     beside the bound (the pair read and the lanes written once; 4 FFMA a
+     complex tap) and the launches of the timed calls;
  11. `wideband_scan` of that band, three synthetic cells at three of the 16
      centres: exactly those three detected, cell id and PRB right;
  11b. `wideband_scan(seconds=2.0)` of the same band made 2 s long: one
@@ -245,14 +252,15 @@ Nothing of phases 1-21 was cut to make room for the later ones.
 `python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3d alone
 and ends with {"ok": null, "partial": "kernels"}: it drives no path.
 
-Every path is driven with the five kernels' launch counts (matched filter
-"mf", pass B "pb", TTI chain "tti", Viterbi "vit", CFO ring "ring") set to
-0 just before it and read just after; each must have launched the first
-four, the TTI chain exactly as often as the Viterbi (one of each a decoding
-dispatch), and the CFO ring on phase 11b's path alone (the only dispatch
-past 200 steps); each rank x plan of phases 20 and 21 is a path of its
-own; the paths that run in other processes (the ranks, the example tools'
-groups and seam sweep) report every kernel's count in their JSON, and the
+Every path is driven with the six kernels' launch counts (matched filter
+"mf", pass B "pb", TTI chain "tti", Viterbi "vit", CFO ring "ring",
+channelizer "chan", which the wideband paths launch) set to 0 just before
+it and read just after; each must have launched the first four, the TTI
+chain exactly as often as the Viterbi (one of each a decoding dispatch),
+and the CFO ring on phase 11b's path alone (the only dispatch past 200
+steps); each rank x plan of phases 20 and 21 is a path of its own; the
+paths that run in other processes (the ranks, the example tools' groups
+and seam sweep) report every kernel's count in their JSON, and the
 attribution tool's `decode` / `micro` stages launch the Viterbi alone.  The
 line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -300,8 +308,8 @@ def log(*a):
 
 class Counts(dict):
     """Kernel launches by kernel: "mf" (matched filter), "pb" (pass B),
-    "tti" (TTI chain), "vit" (Viterbi), "ring" (CFO ring); counts add key
-    by key."""
+    "tti" (TTI chain), "vit" (Viterbi), "ring" (CFO ring), "chan" (the
+    channelizer); counts add key by key."""
 
     def __add__(self, other):
         return Counts({k: self.get(k, 0) + other.get(k, 0)
@@ -314,7 +322,7 @@ class Counts(dict):
         return " / ".join(f"{self.get(k, 0)} {k}" for k in KERNELS)
 
 
-KERNELS = ("mf", "pb", "tti", "vit", "ring")
+KERNELS = ("mf", "pb", "tti", "vit", "ring", "chan")
 # the kernels every path launches; "ring" runs only past 200 steps
 PATH_KERNELS = ("mf", "pb", "tti", "vit")
 LONG_PATH = "wideband_scan 2 s"     # phase 11b: the one such dispatch
@@ -401,7 +409,7 @@ def operand(buf, lo: int, m: int) -> torch.Tensor:
 def kernel_label(mangled: str) -> str:
     """A kernel's name from its mangled one (every kernel of csrc/ is named
     <prefix>_..._kernel), with a template's arguments up to their end."""
-    m = re.search(r"(?:mf|pb|vit|tti|ring)_\w*?kernel", mangled)
+    m = re.search(r"(?:mf|pb|vit|tti|ring|chan)_\w*?kernel", mangled)
     if not m:
         return mangled
     rest = mangled[m.end():]
@@ -566,6 +574,76 @@ def ring_bound(count0, push, lost) -> tuple[float, str]:
     lanes, s = count.size, p.shape[0]
     nbytes = 2 * lanes * (200 * 4 + 4) + s * lanes * (4 + 1 + 1 + 4)
     return roofline(ops, nbytes)
+
+
+def chan_bound(centres: int, n_wide: int, ratio: int) -> tuple[float, str]:
+    """Least milliseconds for the channelizer of `n_wide` wide samples to
+    `centres` lanes at `ratio`: the wide pair read once and the lanes
+    written once, over the memory rate; 16 x ratio complex taps an output,
+    4 FFMA each, at one an instruction."""
+    n_out = n_wide // ratio
+    return roofline(4 * 16 * ratio * centres * n_out,
+                    8 * n_wide + 8 * centres * n_out)
+
+
+def chan_kernel_rows(ck, cases, smi: str) -> dict:
+    """Phase 10's channelizer kernel (`ck`, ops/kernels/channelize.py) at
+    each case (label, the wide pair on the card, centre offsets in Hz,
+    sample rate): held to the plain chunk loop on the same inputs (TOL,
+    and the lanes' relative error at most 1e-5), then its wrapper call (CUDA
+    events, `ms`), the same call replayed from a CUDA graph (`replay_ms`)
+    and the plain loop (`plain_ms`), beside the bound; one launch a call.
+    returns {label: row}."""
+    from ltetrigger_tpu_torch.ops import channelize as chan
+    rows = {}
+    for label, xp, offs, rate in cases:
+        ratio = int(round(rate / 1.92e6))
+        n_wide = xp[0].numel()
+        n_out = n_wide // ratio
+        offn = np.asarray(offs, dtype=np.float64) / rate
+        xpad = tuple(torch.nn.functional.pad(c, (ck.BLOCK, ck.BLOCK))
+                     for c in xp)
+        dev = xp[0].device
+        origins = torch.from_numpy(chan._phase_tables(
+            offn, -ck.BLOCK, -(-(n_wide + 2 * ck.BLOCK) // ck.BLOCK))).to(dev)
+        ramps = torch.from_numpy(chan._ramp_table(offn)).to(dev)
+
+        def kern():
+            return ck.channelize_kernel(xpad, origins, ramps, ratio, n_out)
+
+        def plain():
+            return ck.channelize_plain(xpad, origins, ramps, ratio, n_out)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        num = den = 0.0
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+            num += float(((g.double() - w.double()) ** 2).sum())
+            den += float((w.double() ** 2).sum())
+        rel = math.sqrt(num / den)
+        assert rel <= 1e-5, rel
+        del got, want
+        n0 = ck.launches
+        ms = cuda_ms(kern, iters=5)
+        launched = ck.launches - n0
+        assert launched == 7, launched          # 2 warm-ups and 5 calls
+        rep_ms = replay_ms(kern, iters=5)
+        plain_ms = cuda_ms(plain, iters=2)
+        b_ms, b_by = chan_bound(len(offn), n_wide, ratio)
+        plan = ck.launch_plan(len(offn), n_out, ratio)
+        rows[label] = dict(shape=label, ms=ms, replay_ms=rep_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           rel_err=rel, blocks=plan["blocks"])
+        log(f"channelizer kernel, {label}: {len(offn)} centres x {n_out} "
+            f"outputs at ratio {ratio}, {plan['blocks']} blocks of "
+            f"{plan['threads']}; equals the plain chunk loop (relative "
+            f"error {rel:.3e}); "
+            f"{ms:.3f} ms a call [{rep_ms:.3f} replayed], plain "
+            f"{plain_ms:.3f}, bound {b_ms:.3f} ({b_by}); {launched} "
+            f"launches in the 7 calls of the CUDA-event timing [{smi}]")
+        del xpad, origins, ramps
+        torch.cuda.empty_cache()
+    return rows
 
 
 def chain_inputs(lead: tuple, k: int, seed: int, dev):
@@ -2251,6 +2329,7 @@ def main() -> int:
     from ltetrigger_tpu_torch.ops.kernels import pass_b as pb
     from ltetrigger_tpu_torch.ops.kernels import viterbi as vk
     from ltetrigger_tpu_torch.ops.kernels import cfo_ring as rk
+    from ltetrigger_tpu_torch.ops.kernels import channelize as ck
     from ltetrigger_tpu_torch.ops.kernels import tti_chain as tk
     from ltetrigger_tpu_torch.parallel import (channel_scan, gather_events,
                                                init_distributed, make_mesh,
@@ -3056,12 +3135,23 @@ def main() -> int:
         chan_err = max(chan_err, (g.cpu() - r).abs().max().item())
     del on_card, on_cpu
     pair16 = cplx.from_numpy(band16, dev)
+    n0 = ck.launches
     ms = cuda_ms(lambda: chan.channelize(pair16, rate16, centers16), iters=5)
-    del pair16
     log(f"channelize {band16.size} wide samples at 30.72 Msps to 16 centres: "
         f"card equals CPU (max_abs_err {chan_err:.3e} on a unit-rms band), "
         f"{ms:.2f} ms a call from a pair on the card (CUDA events), "
-        f"{band16.size / ms / 1e3:.1f} M wide samples/s [{smi}]")
+        f"{band16.size / ms / 1e3:.1f} M wide samples/s, "
+        f"{ck.launches - n0} channelizer launches in 7 calls [{smi}]")
+    # the kernel at the band's shape (Band 12: 170 EARFCNs, 2 s at 30.72
+    # Msps, unit-rms noise made on the card) and at this phase's
+    gen = torch.Generator(device=dev).manual_seed(170)
+    band_pair = tuple(torch.randn(61_440_000, device=dev, generator=gen)
+                      * math.sqrt(0.5) for _ in range(2))
+    band_centres = 729.05e6 + 0.1e6 * np.arange(170) - 737.5e6
+    chan_rows = chan_kernel_rows(ck, [
+        ("band C=170, 2 s", band_pair, band_centres, rate16),
+        ("C=16, 0.25 s", pair16, centers16, rate16)], smi)
+    del pair16, band_pair
 
     # ---- 11. wideband_scan of that band ----
     wscan.wideband_scan(band16, rate16, centers16, seconds=0.25,
@@ -3826,6 +3916,7 @@ def main() -> int:
     v73k = vit_rows[(73728, 0.8)]
     t128 = tti_rows[f"{C_BIG} x 3 lanes K=16 combine=True"]
     r400 = ring_rows["48 lanes S=400"]
+    chan_band = chan_rows["band C=170, 2 s"]
 
     def by_path(k):
         return {path: n.get(k, 0) for path, n in path_launches.items()
@@ -3909,6 +4000,21 @@ def main() -> int:
         "chain_ms": r400["chain_ms"],
         "library_ms": None,
         "shapes": list(ring_rows.values()),
+    }, {
+        "name": "channelize.channelize_kernel",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/channelize.cu",
+        "replaces": "none (jnp: ltetrigger_tpu/ops/channelize.py:59)",
+        "launches": sum(by_path("chan").values()),
+        "launches_by_path": by_path("chan"),
+        "rel_err": max(r["rel_err"] for r in chan_rows.values()),
+        "ms": chan_band["ms"],
+        "replay_ms": chan_band["replay_ms"],
+        "plain_ms": chan_band["plain_ms"],
+        "bound_ms": chan_band["bound_ms"],
+        "bound_by": chan_band["bound_by"],
+        "library_ms": None,
+        "shapes": list(chan_rows.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

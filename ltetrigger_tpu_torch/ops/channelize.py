@@ -14,36 +14,39 @@ float64 on the host (tiny tables), and the O(C*N) work (broadcast add,
 cos/sin, complex multiply, anti-alias decimation) on the device.  Per-value
 phase error is <= 2^-24 cycles, orders below the channel noise floor.
 
-The stream is processed in overlap-trimmed chunks so the decimator's filter
-transients never land in the output (context = BLOCK samples each side, far
-exceeding the 16*ratio filter span), and so that only one chunk's rotation
+The context (BLOCK samples each side, far exceeding the 16*ratio filter
+span) keeps the decimator's filter transients out of the output.  On a
+card the mixer and the decimator are one hand-written kernel over the whole
+segment (ops/kernels/channelize.py, csrc/channelize.cu), which folds the
+mixer into the taps and rotates at the narrow rate.  On the CPU the stream
+is processed in overlap-trimmed chunks, so that only one chunk's rotation
 intermediates live at a time: the JAX package runs the chunks as one
-`lax.scan` of a fixed shape; here they are a Python loop, and the last chunk
-may be short.
+`lax.scan` of a fixed shape; here they are a Python loop (the kernel's
+plain version), and the last chunk may be short.
 
 Spans (`utils.profiling.span`, recorded only under a profiler): "channelize"
 around `channelize`, "channelize.upload" around a numpy capture's split and
-copy to the device, "channelize.mix" around the chunk loop, the three with a
-CUDA event pair on a card.  `counts` counts the chunks the loop ran
-("chunks", the streaming front end's included) and the bytes `channelize`
-uploaded ("upload_bytes").
+copy to the device, "channelize.mix" around the mixer and decimator (the
+kernel's launch, or the chunk loop), the three with a CUDA event pair on a
+card.  `counts` counts the chunks the plain loop ran ("chunks", the
+streaming front end's included; a card's call adds none, and one launch to
+`kernels.channelize.launches`) and the bytes `channelize` uploaded
+("upload_bytes").
 """
 
 from __future__ import annotations
 
 import collections
-import math
 
 import numpy as np
 import torch
 
 from ..ltecore.constants import SAMPLE_RATE
 from ..utils.profiling import span
-from . import cplx, resample
+from . import cplx
 from .device import resolve_device, to_device
-
-BLOCK = 9600                 # phase-table block; also the chunk context
-CHUNK_BLOCKS = 32            # blocks of payload per chunk
+from .kernels import channelize as kchan
+from .kernels.channelize import BLOCK, CHUNK_BLOCKS
 
 counts = collections.Counter()   # "chunks" run, "upload_bytes" uploaded
 
@@ -84,7 +87,7 @@ def _ratio(sample_rate: float) -> int:
 def _channelize_scan(xpad: cplx.Pair, origins: torch.Tensor,
                      ramps: torch.Tensor, ratio: int, n_out: int,
                      chunk_blocks: int = CHUNK_BLOCKS) -> cplx.Pair:
-    """Mix one wide segment to C centres and decimate it, chunk by chunk.
+    """Mix one wide segment to C centres and decimate it.
 
     xpad:    pair of [BLOCK + L + BLOCK] float32: the payload with one
              context block before it and at least one after it
@@ -94,40 +97,20 @@ def _channelize_scan(xpad: cplx.Pair, origins: torch.Tensor,
     n_out:   narrow samples to produce, <= L // ratio
     returns: pair of [C, n_out]; output n sits at payload sample n * ratio
 
-    Each chunk is chunk_blocks payload blocks plus one context block a side,
-    with the context's share of the output (BLOCK // ratio samples) trimmed.
-    BLOCK // ratio and the chunk's output count are exact only when the
-    ratio divides 9600; any other ratio is floored silently, as in the JAX
-    package.
+    On a CPU pair the plain chunk loop (`kernels.channelize.
+    channelize_plain`, chunk_blocks payload blocks a chunk, counted in
+    counts["chunks"]); on a CUDA pair the hand-written kernel, one launch
+    for the whole segment (`kernels.channelize.channelize_kernel`; it takes
+    the ratios that divide BLOCK and raises on any other).
 
     Also the compute core of the streaming wideband front end, which feeds
     segments whose context blocks are real stream samples instead of zero
     padding."""
-    c = ramps.shape[0]
-    chunk = chunk_blocks * BLOCK
-    per = chunk // ratio
-    trim = BLOCK // ratio
-    outs = []
-    n_chunks = -(-n_out // per) if n_out > 0 else 0
-    counts["chunks"] += n_chunks
-    for k in range(n_chunks):
-        seg = cplx.index(xpad, slice(k * chunk, (k + 1) * chunk + 2 * BLOCK))
-        lp = seg[0].shape[-1]
-        b0 = k * chunk_blocks
-        nb = -(-lp // BLOCK)
-        ph = (origins[:, b0:b0 + nb, None] + ramps[:, None, :]) \
-            .reshape(c, nb * BLOCK)[:, :lp]
-        rot = cplx.expi((2 * math.pi) * ph)
-        shifted = cplx.mul((seg[0][None, :], seg[1][None, :]), rot)
-        d = resample.decimate(shifted, ratio)
-        cnt = min(per, n_out - k * per)
-        outs.append(cplx.index(d, (slice(None), slice(trim, trim + cnt))))
-    if not outs:
-        return cplx.zeros((c, 0), ramps.device)
-    if len(outs) == 1:
-        return outs[0]
-    return (torch.cat([o[0] for o in outs], dim=-1),
-            torch.cat([o[1] for o in outs], dim=-1))
+    if xpad[0].device.type == "cpu":
+        counts["chunks"] += kchan.n_chunks(n_out, ratio, chunk_blocks)
+        return kchan.channelize_plain(xpad, origins, ramps, ratio, n_out,
+                                      chunk_blocks)
+    return kchan.channelize_kernel(xpad, origins, ramps, ratio, n_out)
 
 
 def channelize(x, sample_rate: float, center_offsets_hz,

@@ -6,10 +6,11 @@ build (`build.py`).  Each wrapper module counts its kernel's launches in its
 def modules() -> dict:
     """Every hand kernel's wrapper module by short name: "mf" (matched
     filter), "pb" (pass B), "tti" (TTI chain), "vit" (Viterbi), "ring" (CFO
-    ring)."""
-    from . import cfo_ring, matched_filter, pass_b, tti_chain, viterbi
+    ring), "chan" (the channelizer's mixer and decimator)."""
+    from . import (cfo_ring, channelize, matched_filter, pass_b, tti_chain,
+                   viterbi)
     return {"mf": matched_filter, "pb": pass_b, "tti": tti_chain,
-            "vit": viterbi, "ring": cfo_ring}
+            "vit": viterbi, "ring": cfo_ring, "chan": channelize}
 
 
 def launch_counts() -> dict:
