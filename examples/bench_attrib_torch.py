@@ -33,9 +33,10 @@ Subcommands:
   micro   [--channels C] [--steps S]
       Pass C's small stages: slot-0 segment reads at random and at the
       engine's starts (`trigger._read`), the CFO rotation, the ring
-      recurrence.  The JAX tool's `extract_taa` / `extract_dense` rows time
-      TPU workarounds the port does not have (its extraction is plain
-      indexing), so they are left out.
+      recurrence (`ring_scan`, where the JAX tool's row times its closed
+      form `ring_series`).  The JAX tool's `extract_taa` / `extract_dense`
+      rows time TPU workarounds the port does not have (its extraction is
+      plain indexing), so they are left out.
 
 Every subcommand takes `--device` (default cuda; raises where there is no
 card) and `--capture PATH` (a complex64 capture of cell 123 at 1.92 Msps;
@@ -212,6 +213,7 @@ def cmd_decode(args) -> list:
 # ----------------------------------------------------------------- micro --
 def cmd_micro(args) -> list:
     from ltetrigger_tpu_torch.ops import cfo as cfo_ops
+    from ltetrigger_tpu_torch.ops.kernels import cfo_ring
 
     dev = _setup(args)
     C, S = args.channels, args.steps
@@ -250,8 +252,8 @@ def cmd_micro(args) -> list:
             ("extract_gather", lambda: read(ebuf, est_start)),
             ("cfo_rotate", lambda: cfo_ops.cfo_rotate(seg, freq,
                                                       trig.SEG_OFF)),
-            ("ring_series", lambda: trig._ring_series(ring0, cnt0, est,
-                                                      push, lost))):
+            ("ring_scan", lambda: cfo_ring.ring_scan(ring0, cnt0, est,
+                                                     push, lost))):
         t, dms, _ = timeit(fn, dev)
         rec = dict(op=op, ms=t * 1e3, device_ms=dms)
         emit(**rec)

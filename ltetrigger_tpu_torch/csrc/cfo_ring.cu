@@ -1,9 +1,9 @@
-// The 200-slot CFO telemetry ring of pass C over a dispatch longer than the
-// ring, in one launch (Hopper, sm_90a).
+// The 200-slot CFO telemetry ring of pass C over a dispatch of any length,
+// in one launch (Hopper, sm_90a).
 //
 // Replaces the device loop of the JAX package's _mib_postpass for s > 200
-// steps: the lax.scan of `ring_step` (ltetrigger_tpu/models/trigger.py:962,
-// scanned at :972).  Its plain PyTorch version is ring_scan_plain in
+// steps, the lax.scan of `ring_step` (ltetrigger_tpu/models/trigger.py:962,
+// scanned at :972), and its closed form (:679) for s <= 200 steps.  Its plain PyTorch version is ring_scan_plain in
 // ltetrigger_tpu_torch/ops/kernels/cfo_ring.py (about 15 small ops a step);
 // this kernel computes what that code computes, step for step:
 //

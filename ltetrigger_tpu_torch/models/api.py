@@ -213,7 +213,7 @@ def search(iq: np.ndarray, sample_rate: float,
         steps_done += n
         with stage("drain"):
             # one device-to-host copy per chunk
-            host = trig.unpack_output(trig.pack_output(out).cpu())
+            host = trig.unpack_output(trig.pack_output(out))
             stop = _drain_events(host, store, found)
         if exit_on_success and stop:
             break

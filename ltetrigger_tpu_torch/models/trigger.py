@@ -12,17 +12,18 @@ observable contract, in PyTorch's idiom.
           PSR telemetry ring; one launch of the hand-written CUDA kernel per
           group (ops/kernels/pass_b.py).
   pass C  batched over the step axis: slot-0 tail extraction, CFO estimate
-          and ring (past 200 steps one launch of the hand-written CUDA
-          kernel, ops/kernels/cfo_ring.py), CP detect, SSS, MIB capture
-          selection, then one batched PBCH + Viterbi decode of the captured
-          candidates with the 40 ms TTI soft-combining accumulator (one
-          launch each of the hand-written CUDA kernels ops/kernels/
-          tti_chain.py and ops/kernels/viterbi.py), and the track/drop
-          event assembly.
+          and ring (one launch of the hand-written CUDA kernel
+          ops/kernels/cfo_ring.py at any dispatch length), CP detect, SSS,
+          MIB capture selection, then one batched PBCH + Viterbi decode of
+          the captured candidates with the 40 ms TTI soft-combining
+          accumulator (one launch each of the hand-written CUDA kernels
+          ops/kernels/tti_chain.py and ops/kernels/viterbi.py), and the
+          track/drop event assembly.
 
-Sample extraction is plain indexing: the JAX package's dense one-hot
-extraction exists only because TPU gathers are slow.  The engine reads the
-buffer as if it were zero-extended past its end, as the JAX engine pads it.
+Sample extraction, the scatter into the capture slots and the map back to
+steps are plain indexing: the JAX package's dense one-hots exist only
+because TPU gathers are slow.  The engine reads the buffer as if it were
+zero-extended past its end, as the JAX engine pads it.
 
 Host syncs (each waits for the card and reads a value; `host_syncs` counts
 them by name, and each read is the span "wait.<name>"):
@@ -41,12 +42,12 @@ Spans (utils/profiling.span; recorded only while a torch.profiler runs):
 "pass_c.decode" and "pass_c.events"; the waits above; "readback.pack",
 "readback.copy" and "readback.unpack" in pack_output / unpack_output,
 whose "wait.drain" (a stream synchronize made only while tracing, counted
-in no `host_syncs`) parts the card's drain from the copy.  A CUDA input
-to unpack_output is split into its fields on the card ("readback.copy":
-the split's launches and one copy to pinned host memory) and read back as
-numpy views of that pinned buffer ("readback.unpack"); a CPU tensor or a
-numpy array is copied and split on the host.  `readback_paths` counts the
-calls by the path they took ("device" / "host").
+in no `host_syncs`) parts the card's drain from the copy.  unpack_output
+splits its input into its fields where it lies ("readback.copy": a CUDA
+input's split on the card and one copy to pinned host memory; a CPU
+tensor's or a numpy array's split on the host) and reads them back as
+numpy views of that one buffer ("readback.unpack").  `readback_paths`
+counts the calls by the path they took ("device" / "host").
 
 All three N_id_2 hypotheses are a trailing [R] axis; channels are leading
 batch axes of the buffer and of every state field.
@@ -317,54 +318,6 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=0).values
 
 
-def _ring_series(ring0, count0, est, push, lost):
-    """Closed-form telemetry-ring recurrence over the step axis (exact
-    parity with per-step reset-then-push semantics; one dispatch pushes at
-    most n_steps <= MOVING_AVG_SZ values, so two in-dispatch pushes never
-    collide on a ring slot).
-
-    ring0 [.., R, 200], count0 [.., R]; est/push/lost [S, .., R].
-    returns (ring_final, count_final, mean_per_step [S, .., R]).
-    """
-    s = est.shape[0]
-    assert s <= MOVING_AVG_SZ
-    tt = torch.arange(s, device=est.device).reshape((s,) + (1,) *
-                                                    (est.ndim - 1))
-    last_reset = _cummax(torch.where(lost, tt, -1))              # incl.
-    pcum = torch.cumsum(push.to(torch.int32), dim=0)             # incl.
-    pcum_at_reset = torch.take_along_dim(
-        pcum, torch.clamp(last_reset, min=0), dim=0)
-    # lost steps never push, so pcum at the reset index equals the pushes
-    # strictly before it
-    seg_pushes = torch.where(last_reset >= 0, pcum - pcum_at_reset, pcum)
-    count_after = seg_pushes + torch.where(last_reset >= 0, 0, count0[None])
-    count_before = count_after - push.to(torch.int32)
-    slot = torch.remainder(count_before, MOVING_AVG_SZ).to(torch.int64)
-    evict = (last_reset < 0) & (count_before >= MOVING_AVG_SZ)
-    ring0_at = torch.take_along_dim(ring0[None], slot[..., None],
-                                    dim=-1)[..., 0]
-    contrib = torch.where(push, est - torch.where(evict, ring0_at, 0.0), 0.0)
-    ccum = torch.cumsum(contrib, dim=0)
-    ccum_at_reset = torch.take_along_dim(
-        ccum, torch.clamp(last_reset, min=0), dim=0)
-    sum0 = ring0.sum(dim=-1)
-    sum_after = torch.where(last_reset >= 0, ccum - ccum_at_reset,
-                            ccum + sum0[None])
-    n_eff = torch.clamp(count_after, max=MOVING_AVG_SZ)
-    mean = torch.where(n_eff > 0, sum_after / torch.clamp(n_eff, min=1), 0.0)
-
-    final_reset = last_reset[-1]
-    live = push & (tt > final_reset)
-    onehot = (slot[..., None] == torch.arange(MOVING_AVG_SZ,
-                                              device=est.device)) \
-        & live[..., None]
-    pushed_any = onehot.any(dim=0)
-    pushed_val = torch.sum(onehot.to(torch.float32) * est[..., None], dim=0)
-    base = torch.where((final_reset >= 0)[..., None], 0.0, ring0)
-    ring_f = torch.where(pushed_any, pushed_val, base)
-    return ring_f, count_after[-1].to(torch.int32), mean
-
-
 def _capture_chain(state0: TriggerState, raw: RawStepOutput, sss_valid,
                    sub5, cell_id, gatherable, k: int):
     """Per-step capture selection (reference mib tag gating + in-scan
@@ -511,14 +464,8 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
                 pss_sym = cplx.index(seg, (..., slice(SEG - SYMBOL_SZ, SEG)))
                 est = cfo_ops.cfo_estimate(pss_sym, reps)       # [S, .., R]
                 push = raw.emit & raw.tracking
-                if s <= MOVING_AVG_SZ:
-                    ring_f, count_f, cfo_mean = _ring_series(
-                        state0.cfo_ring, state0.cfo_count, est, push,
-                        raw.lost)
-                else:   # dispatches longer than the ring: step by step
-                    ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
-                        state0.cfo_ring, state0.cfo_count, est, push,
-                        raw.lost)
+                ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
+                    state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
 
                 # ---- rotate, CP detect, SSS ----
                 freq = torch.where(raw.tracking, -cfo_mean / SYMBOL_SZ, 0.0)
@@ -548,15 +495,18 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
                 gatherable = st0 + 2 * SLOT_LENGTH <= data_valid
                 want_cap, slot, fresh, cnt, pf_f, overflow = _capture_chain(
                     state0, raw, sss_valid, sub5, cell_id, gatherable, k)
-                onehot = (slot[..., None] == torch.arange(k, device=dev)) \
-                    & want_cap[..., None]                   # [S, .., R, K]
+                # each step's slot, step axis last [.., R, S]; a step that
+                # captures nothing writes to a spare slot k, dropped after
+                at = torch.where(want_cap, slot, k).movedim(0, -1)
 
-                def scatter(v):
-                    return torch.where(onehot, v[..., None], 0).sum(dim=0)
+                def scatter(v):             # [S, .., R] -> [.., R, K]
+                    v = v.expand(shape).movedim(0, -1)
+                    spare = v.new_zeros(v.shape[:-1] + (k + 1,))
+                    return spare.scatter_(-1, at, v)[..., :k]
 
-                cand_cell = scatter(cell_id).to(torch.int32)
-                cand_cp = scatter(normal_cp.to(torch.int32)) > 0
-                cand_fresh = scatter(fresh.to(torch.int32)) > 0
+                cand_cell = scatter(cell_id)
+                cand_cp = scatter(normal_cp)
+                cand_fresh = scatter(fresh)
                 cand_start = scatter(st0 + SLOT_LENGTH)
                 cand_freq = scatter(freq)
                 valid = torch.arange(k, device=dev) < cnt[..., None]
@@ -593,11 +543,16 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
                                             & (e == 0))
 
                 # ---- map candidate verdicts back to step space ----
-                track_event = torch.any(onehot & is_pub[None], dim=-1)
+                taken = torch.clamp(at, max=k - 1)
+
+                def gather(a):              # [.., R, K] -> [S, .., R]
+                    return torch.gather(a, -1, taken).movedim(-1, 0)
+
+                track_event = want_cap & gather(is_pub)
 
                 def fld(a):
-                    x = torch.where(onehot, a[None], 0).sum(dim=-1)
-                    return torch.where(track_event, x, 0).to(torch.int32)
+                    return torch.where(track_event, gather(a), 0).to(
+                        torch.int32)
 
                 mid_final = final._replace(
                     cfo_ring=ring_f, cfo_count=count_f,
@@ -663,42 +618,29 @@ def pack_output(out: StepOutput) -> torch.Tensor:
 
 def unpack_output(arr) -> StepOutput:
     """Inverse of pack_output, into host numpy arrays (int32, float32 and
-    bool fields, each of the packed output's leading shape).
+    bool fields, each of the packed output's leading shape), the fields'
+    types as unpack_output_tensors sets them.
 
-    A CUDA tensor is split into its fields on the card (`split_fields`)
-    and copied once into pinned host memory; the fields are numpy views of
-    that one buffer, which the result alone owns, so no later call changes
-    it.  A CPU tensor or a numpy array is copied and split on the host.
-    `readback_paths` counts the calls by path, "device" or "host"."""
-    if isinstance(arr, torch.Tensor) and arr.is_cuda:
-        readback_paths["device"] += 1
-        if tracing():
-            with span("wait.drain"):
-                torch.cuda.current_stream(arr.device).synchronize()
-        with span("readback.copy"):
-            fields = split_fields(arr)
-            host = torch.empty(fields.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(fields)
-        with span("readback.unpack"):
-            return field_views(host.numpy(), arr.shape[:-1])
-    readback_paths["host"] += 1
-    if isinstance(arr, torch.Tensor):
-        with span("readback.copy"):
-            a = arr.cpu().numpy()
-    else:
-        a = np.asarray(arr)
+    The fields are split with `split_fields` where the packed output lies
+    ("readback.copy": a CUDA tensor on the card, then one copy into pinned
+    host memory; a CPU tensor or a numpy array on the host) and read as
+    numpy views of that one buffer (`field_views`, "readback.unpack"),
+    which the result alone owns, so no later call changes it.
+    `readback_paths` counts the calls by path, "device" (a CUDA tensor) or
+    "host"."""
+    packed = torch.as_tensor(arr)
+    on_card = packed.is_cuda
+    readback_paths["device" if on_card else "host"] += 1
+    if on_card and tracing():
+        with span("wait.drain"):
+            torch.cuda.current_stream(packed.device).synchronize()
+    with span("readback.copy"):
+        buf = split_fields(packed)
+        if on_card:
+            buf = torch.empty(buf.shape, dtype=torch.uint8,
+                              pin_memory=True).copy_(buf)
     with span("readback.unpack"):
-        kw = {}
-        for i, f in enumerate(StepOutput._fields):
-            col = a[..., i]
-            if f in _BOOL_FIELDS:
-                kw[f] = col > 0.5
-            elif f in _F32_FIELDS:
-                kw[f] = col.astype(np.float32)
-            else:
-                kw[f] = col.astype(np.int32)
-        return StepOutput(**kw)
+        return field_views(buf.numpy(), packed.shape[:-1])
 
 
 # field order of split_fields' buffer: the 4-byte fields, then the bools

@@ -1,11 +1,11 @@
-"""Pass C's CFO telemetry ring over a dispatch longer than the ring (200
-slots) as the hand-written CUDA kernel and its plain PyTorch version.
+"""Pass C's CFO telemetry ring (200 slots) over a dispatch of any length
+as the hand-written CUDA kernel and its plain PyTorch version.
 
 Replaces the JAX package's device loop `ring_step` of `_mib_postpass`
-(ltetrigger_tpu/models/trigger.py:962, its lax.scan at :972).  The CUDA
-source is ltetrigger_tpu_torch/csrc/cfo_ring.cu; its header gives the
-design and the bound.  Dispatches of at most 200 steps take the closed form
-(trigger._ring_series), as in the JAX package.
+(ltetrigger_tpu/models/trigger.py:962, its lax.scan at :972) and, for
+dispatches of at most 200 steps, its closed form (:679).
+The CUDA source is ltetrigger_tpu_torch/csrc/cfo_ring.cu; its header gives
+the design and the bound.
 
   ring_scan(ring0, count0, est, push, lost) -> (ring_f, count_f, mean)
       ring0 [*L, 200] float32, count0 [*L] int32: the ring and its push

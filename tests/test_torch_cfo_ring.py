@@ -1,12 +1,12 @@
-"""Pass C's CFO telemetry ring over dispatches longer than the ring
-(ops/kernels/cfo_ring.py): the port's `_mib_postpass` at s = 201 and 230
-steps and a 208-step `channel_scan` against the JAX package's (its
+"""Pass C's CFO telemetry ring (ops/kernels/cfo_ring.py), which pass C
+takes at every dispatch length: the port's `_mib_postpass` at s = 201 and
+230 steps and a 208-step `channel_scan` against the JAX package's (its
 `lax.scan` of `ring_step`); `ring_scan_plain` against the loop it replaced,
-bit for bit, and against the closed form of shorter dispatches; the
-kernel's schedule in PyTorch (`schedule_model`) against the plain version;
-the CPU entry is the plain version and pass C reaches it only past 200
-steps; the launch plan; (marked `cuda`) the kernel against the plain
-version and the schedule on a card.
+bit for bit, and up to 200 steps against the JAX package's closed form
+(`_ring_series`); the kernel's schedule in PyTorch (`schedule_model`)
+against the plain version; the CPU entry is the plain version and pass C
+calls it once a dispatch; the launch plan; (marked `cuda`) the kernel
+against the plain version and the schedule on a card.
 
 Tolerances: integers and booleans exact, floats within test_torch_common's
 FLOAT_TOL (the CFO mean and ring atol 1e-4 subcarriers: the two packages
@@ -162,12 +162,18 @@ def test_plain_matches_the_loop_it_replaced(lead, s):
 
 @pytest.mark.parametrize("s", [1, 50, 200])
 def test_plain_matches_the_closed_form_up_to_200(s):
-    """Up to 200 steps pass C takes the closed form; the two agree."""
+    """Up to 200 steps the JAX package takes its closed form
+    (`_ring_series`); the port's plain ring agrees with it on the same
+    inputs: ring and count exact, the mean within atol 1e-5."""
     ins = ring_inputs((4, 3), s, seed=s)
     got = ck.ring_scan_plain(*ins)
-    ref = trig._ring_series(*ins)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+    ref = jtrig._ring_series(*(jnp.asarray(x.numpy()) for x in ins))
+    for g, r, what in zip(got[:2], ref[:2], ("ring", "count")):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype, what
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=what)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=0,
+                               atol=1e-5)
 
 
 def test_cpu_entry_is_the_plain_version():
@@ -180,8 +186,11 @@ def test_cpu_entry_is_the_plain_version():
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("s,calls", [(200, 0), (201, 1)])
-def test_pass_c_takes_the_ring_scan_only_past_200(monkeypatch, s, calls):
+# the name is historical: pass C once ran the ring scan past 200 steps only
+@pytest.mark.parametrize("s", [200, 201])
+def test_pass_c_takes_the_ring_scan_only_past_200(monkeypatch, s):
+    """Pass C takes `ring_scan` at every dispatch length, once a dispatch:
+    up to the ring's 200 slots and past them."""
     seen = []
     real = ck.ring_scan
 
@@ -194,7 +203,7 @@ def test_pass_c_takes_the_ring_scan_only_past_200(monkeypatch, s, calls):
     st0 = trig.init_state(batch=(1,), device="cpu")
     fin, raw = trig.scan_pass(tb, st0, s, 4.0, grid0=trig.LOOKBACK)
     trig._mib_postpass(st0, fin, raw, tb, buf.shape[-1])
-    assert seen == [(s, 1, 3)] * calls
+    assert seen == [(s, 1, 3)]
 
 
 def test_kernel_refuses_cpu_tensors():
@@ -281,7 +290,8 @@ def cuda_device():
 @pytest.mark.parametrize("make", [ring_inputs, near_200, rare_losses])
 @pytest.mark.parametrize("lead,s", [((48,), 201), ((16, 3), 400),
                                     ((5,), 600), ((48,), 1000),
-                                    ((1, 3), 1)])
+                                    ((1, 3), 1), ((512, 3), 200),
+                                    ((3,), 16)])
 def test_kernel_matches_plain_on_card(cuda_device, make, lead, s):
     """Ring and count exact, the mean within atol 1e-5 subcarriers of the
     plain version; all three equal to the kernel's schedule in PyTorch,

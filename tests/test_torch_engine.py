@@ -176,12 +176,15 @@ def _edge_packed(lead, seed):
 
 @pytest.mark.parametrize("lead", [(8, 3), (8, 5, 3), (8, 2, 5, 3), (0, 3)])
 def test_split_fields_views_equal_the_host_split(lead):
-    """The card's split (split_fields, run here on the CPU) read back as
-    views (field_views) gives the host split's arrays byte for byte, in
-    dtype and shape; a CPU tensor and a numpy array take the host path."""
+    """unpack_output of a numpy array and of a CPU tensor, and the card's
+    split (split_fields, run here on the CPU) read back as views
+    (field_views), each equal the JAX package's unpack_output of the same
+    packed array byte for byte, in dtype and shape, NaN / +-inf / -0.0
+    included; the array and the tensor take the host path."""
     packed = _edge_packed(lead, sum(lead))
+    want = jtrig.unpack_output(packed.numpy())._asdict()
     paths = dict(trig.readback_paths)
-    want = trig.unpack_output(packed.numpy())
+    from_array = trig.unpack_output(packed.numpy())
     from_tensor = trig.unpack_output(packed)
     assert trig.readback_paths["host"] == paths.get("host", 0) + 2
     assert trig.readback_paths["device"] == paths.get("device", 0)
@@ -190,9 +193,12 @@ def test_split_fields_views_equal_the_host_split(lead):
     assert buf.dtype == torch.uint8 and buf.shape == (48 * n,)
     got = trig.field_views(buf.numpy(), lead)
     if n:
-        assert np.isnan(want.psr).any() and np.isinf(want.cfo_mean).any()
-        assert np.signbit(want.psr[want.psr == 0]).any()
-    for f, w, g, t in zip(trig.StepOutput._fields, want, got, from_tensor):
-        for a in (g, t):
-            assert a.dtype == w.dtype and a.shape == w.shape == lead, f
-            assert a.tobytes() == w.tobytes(), f
+        assert np.isnan(want["psr"]).any()
+        assert np.isinf(want["cfo_mean"]).any()
+        assert np.signbit(want["psr"][want["psr"] == 0]).any()
+    for f, g, a, t in zip(trig.StepOutput._fields, got, from_array,
+                          from_tensor):
+        w = want[f]
+        for x in (g, a, t):
+            assert x.dtype == w.dtype and x.shape == w.shape == lead, f
+            assert x.tobytes() == w.tobytes(), f

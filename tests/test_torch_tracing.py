@@ -233,13 +233,14 @@ def test_each_hand_kernel_launches_under_its_span_on_the_card(tmp_path):
         for kernel, span in (("mf_stage_kernel", "scan_pass"),
                              ("mf_wgmma_kernel", "scan_pass"),
                              ("pb_scan_kernel", "scan_pass"),
+                             ("ring_scan_kernel", "pass_c.sync"),
                              ("tti_chain_kernel", "pass_c.decode"),
                              ("vit_wa_kernel", "pass_c.decode")):
             if kernel in name:
                 assert span in spans, (name, spans)
                 seen[kernel] += 1
-    assert seen["pb_scan_kernel"] and seen["tti_chain_kernel"] \
-        and seen["vit_wa_kernel"], seen
+    assert seen["pb_scan_kernel"] and seen["ring_scan_kernel"] \
+        and seen["tti_chain_kernel"] and seen["vit_wa_kernel"], seen
     assert seen["mf_stage_kernel"] or seen["mf_wgmma_kernel"], seen
     names = collections.Counter(s.name for s in profiling.spans())
     assert names["wait.drain"] == names["readback.copy"] \
