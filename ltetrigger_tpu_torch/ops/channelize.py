@@ -24,14 +24,24 @@ intermediates live at a time: the JAX package runs the chunks as one
 `lax.scan` of a fixed shape; here they are a Python loop (the kernel's
 plain version), and the last chunk may be short.
 
+A numpy capture reaches a card as it lies in memory (`upload_padded`): the
+complex64 samples viewed as interleaved float32, with no host copy (any
+other dtype or layout is cast to contiguous complex64 once), staged through
+the device's fixed ring of pinned slabs (`device.upload_float32`, SLAB_BYTES
+a slab), then split into re and im on the card straight into the padded
+pair.  On the CPU the capture is split on the host (`cplx.from_numpy`) and
+padded.
+
 Spans (`utils.profiling.span`, recorded only under a profiler): "channelize"
-around `channelize`, "channelize.upload" around a numpy capture's split and
-copy to the device, "channelize.mix" around the mixer and decimator (the
+around `channelize`, "channelize.upload" around a numpy capture's upload
+(on a card the view, the ring and the split into the padded pair; on the
+CPU the host split), "channelize.mix" around the mixer and decimator (the
 kernel's launch, or the chunk loop), the three with a CUDA event pair on a
 card.  `counts` counts the chunks the plain loop ran ("chunks", the
 streaming front end's included; a card's call adds none, and one launch to
-`kernels.channelize.launches`) and the bytes `channelize` uploaded
-("upload_bytes").
+`kernels.channelize.launches`), the bytes `channelize` uploaded
+("upload_bytes", 8 a sample) and the slabs the ring staged ("upload_slabs",
+ceil(8 n / SLAB_BYTES) a card's call; none on the CPU).
 """
 
 from __future__ import annotations
@@ -44,11 +54,14 @@ import torch
 from ..ltecore.constants import SAMPLE_RATE
 from ..utils.profiling import span
 from . import cplx
-from .device import resolve_device, to_device
+from .device import resolve_device, to_device, upload_float32
 from .kernels import channelize as kchan
 from .kernels.channelize import BLOCK, CHUNK_BLOCKS
 
-counts = collections.Counter()   # "chunks" run, "upload_bytes" uploaded
+SLAB_BYTES = 16 << 20   # a slab of the upload ring
+
+# "chunks" run, "upload_bytes" uploaded, "upload_slabs" staged
+counts = collections.Counter()
 
 
 def shift_host(x: np.ndarray, sample_rate: float, offset_hz: float,
@@ -113,6 +126,31 @@ def _channelize_scan(xpad: cplx.Pair, origins: torch.Tensor,
     return kchan.channelize_kernel(xpad, origins, ramps, ratio, n_out)
 
 
+def upload_padded(x: np.ndarray, device,
+                  slab_bytes: int = SLAB_BYTES) -> cplx.Pair:
+    """A numpy capture [n] -> the padded pair of [BLOCK + n + BLOCK] float32
+    on `device` (zero context blocks a side), the values of
+    `cplx.from_numpy` then a pad of BLOCK zeros a side.
+
+    The capture crosses as interleaved float32 (8 bytes a sample): a
+    C-contiguous complex64 array is viewed as it is; any other is first
+    made one by one cast.  It goes through the device's ring of pinned
+    slabs of `slab_bytes` (`device.upload_float32`; counted in
+    counts["upload_slabs"]), then its even and odd words are copied on the
+    device into the pair's re and im payload."""
+    inter = np.ascontiguousarray(x, np.complex64).reshape(-1) \
+        .view(np.float32)
+    n = inter.size // 2
+    flat = upload_float32(inter, device, slab_bytes)
+    counts["upload_slabs"] += -(-inter.nbytes // slab_bytes)
+    xpad = torch.empty((2, BLOCK + n + BLOCK), dtype=torch.float32,
+                       device=flat.device)
+    xpad[:, :BLOCK].zero_()
+    xpad[:, BLOCK + n:].zero_()
+    xpad[:, BLOCK:BLOCK + n].copy_(flat.view(n, 2).t())
+    return xpad[0], xpad[1]
+
+
 def channelize(x, sample_rate: float, center_offsets_hz,
                device="cuda") -> cplx.Pair:
     """Wideband stream -> pair of [C, N // ratio] float32 at 1.92 Msps.
@@ -124,22 +162,28 @@ def channelize(x, sample_rate: float, center_offsets_hz,
     down-convert; each becomes a channel.  sample_rate must be an integer
     multiple of 1.92 MHz.
 
-    Only the mod-1 phase tables ([C, n_blocks] and [C, BLOCK] f32) cross
-    host -> device per call besides the samples.
+    Besides the samples, only the mod-1 phase tables ([C, n_blocks] and
+    [C, BLOCK] f32) cross host -> device per call.  A numpy capture crosses
+    to a card through a fixed ring of pinned slabs and is split there
+    (`upload_padded`); it is read from the caller's array on every call.
     """
     ratio = _ratio(sample_rate)
     offs = np.asarray(list(center_offsets_hz), dtype=np.float64) / sample_rate
     dev = x[0].device if isinstance(x, tuple) else resolve_device(device)
     with span("channelize", device=dev):
-        if isinstance(x, tuple):
-            xp = x
-        else:
+        uploaded = not isinstance(x, tuple)
+        if uploaded and dev.type == "cuda":
             with span("channelize.upload", device=dev):
-                xp = cplx.from_numpy(np.ascontiguousarray(x), dev)
-            counts["upload_bytes"] += 2 * xp[0].numel() * xp[0].element_size()
-        n = int(xp[0].shape[-1])
-        xpad = tuple(torch.nn.functional.pad(comp, (BLOCK, BLOCK))
-                     for comp in xp)
+                xpad = upload_padded(x, dev)
+        else:
+            if uploaded:
+                with span("channelize.upload", device=dev):
+                    x = cplx.from_numpy(np.ascontiguousarray(x), dev)
+            xpad = tuple(torch.nn.functional.pad(comp, (BLOCK, BLOCK))
+                         for comp in x)
+        n = int(xpad[0].shape[-1]) - 2 * BLOCK
+        if uploaded:
+            counts["upload_bytes"] += 8 * n
         # block-origin phases, host f64 mod 1 (tiny): xpad[0] is sample -BLOCK
         origins = _phase_tables(offs, -BLOCK, -(-(n + 2 * BLOCK) // BLOCK))
         origins, ramps = to_device(origins, dev), to_device(_ramp_table(offs),

@@ -6,8 +6,13 @@ against the plain chunk loop and the JAX package's `channelize`, at ratios
 multiple of a chunk or a tile; a streaming segment with real context and
 phase origins past 2^29 against a float64 reference; the modulated taps
 against taps made from float64 offsets; the CPU path is the plain loop;
-the launch plan; (marked `cuda`) the kernel against the plain version at
-the band's 170 centres, one launch a call, and what the wrapper refuses.
+the launch plan; a numpy capture's upload to the padded pair through the
+ring of slabs (`upload_padded`, on the CPU here) against `cplx.from_numpy`
+and a pad, bit for bit; (marked `cuda`) the kernel against the plain
+version at the band's 170 centres, one launch a call, and what the wrapper
+refuses; the upload through pinned slabs against the old upload feeding
+the same kernel, bit for bit, over back-to-back captures, its counters,
+and no pageable copy inside `channelize`.
 
 Tolerances: CHAN_TOL (rtol 1e-4, atol 1e-5 on a unit-rms band), the
 channelizer's tolerance in test_torch_wideband: the model sums the filter
@@ -18,6 +23,7 @@ against the plain version: CHAN_TOL, and a relative error of the lanes'
 norm at most 1e-5 (the benchmark's `chan_rel_err` reads ~1.8e-6).
 """
 
+import collections
 import math
 
 import numpy as np
@@ -25,11 +31,18 @@ import pytest
 import torch
 
 from ltetrigger_tpu_torch.ops import channelize as chan
-from ltetrigger_tpu_torch.ops import resample
+from ltetrigger_tpu_torch.ops import cplx, resample
 from ltetrigger_tpu_torch.ops.kernels import channelize as kc
 
 CHAN_TOL = dict(rtol=1e-4, atol=1e-5)
 BLOCK = kc.BLOCK
+
+
+@pytest.fixture(autouse=True)
+def own_counts(monkeypatch):
+    """Each test counts into a Counter of its own: a key it adds
+    ("upload_slabs") must not reach other files' tests in the process."""
+    monkeypatch.setattr(chan, "counts", collections.Counter())
 
 
 def unit_noise(rng, n: int) -> np.ndarray:
@@ -196,6 +209,46 @@ def test_launch_plan():
         assert r % plan["phases"] == 0 and plan["phases"] <= 16
 
 
+# ------------------------------------------------------------ the upload --
+def old_upload(x: np.ndarray, device="cpu"):
+    """The upload before the ring: a host split, then a pad a side."""
+    return tuple(torch.nn.functional.pad(c, (BLOCK, BLOCK))
+                 for c in cplx.from_numpy(np.ascontiguousarray(x), device))
+
+
+def assert_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.is_contiguous()
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+SLAB = 64           # bytes: 8 samples a slab
+
+
+@pytest.mark.parametrize("n,kind,slab", [
+    (5, "complex64", SLAB), (8, "complex64", SLAB), (9, "complex64", SLAB),
+    (37, "complex64", SLAB), (37, "complex128", SLAB),
+    (37, "strided", SLAB), (37, "float32", SLAB),
+    (1000, "complex64", chan.SLAB_BYTES)])
+def test_the_upload_through_slabs_is_the_split_and_pad_bit_for_bit(
+        n, kind, slab):
+    """Below a slab, one slab, one slab + 1, an odd length; a complex128
+    capture (one cast), a strided view x[::2] and a real float32 array; and
+    the module's own slab size."""
+    z = np.random.default_rng(n).normal(size=(2, 2 * n)) * 3
+    z = z[0] + 1j * z[1]
+    z[:3] = [-0.0, np.inf, 1e-42]       # a sign, an infinity, a denormal
+    x = {"complex64": z[:n].astype(np.complex64), "complex128": z[:n],
+         "strided": z.astype(np.complex64)[::2],
+         "float32": z.real[:n].astype(np.float32)}[kind]
+    slabs = chan.counts["upload_slabs"]
+    got = chan.upload_padded(x, "cpu", slab)
+    assert_bits(got, old_upload(x))
+    assert got[0].shape == (BLOCK + n + BLOCK,)
+    assert chan.counts["upload_slabs"] - slabs == -(-8 * n // slab)
+
+
 # ------------------------------------------------- on a card (marker cuda) --
 @pytest.fixture
 def cuda_device():
@@ -318,3 +371,71 @@ def test_the_kernel_is_the_mix_spans_only_kernel(cuda_device, tmp_path):
     assert sum("chan_decimate_kernel" in k for k in inside) == 1, inside
     others = [k for k in inside if "chan_" not in k]
     assert len(others) <= 1 and all("copy" in k for k in others), inside
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["complex64", "strided"])
+def test_the_lanes_equal_the_old_upload_through_the_same_kernel(
+        cuda_device, kind):
+    """170 centres, 0.2 s at 30.72 Msps (3 slabs): `channelize` of the numpy
+    capture against the old upload's pair through the same kernel."""
+    rate = 30.72e6
+    x = unit_noise(np.random.default_rng(17), 2 * int(0.2 * rate))
+    x = x[:x.size // 2] if kind == "complex64" else x[::2]
+    offs = band_centres()
+    got = chan.channelize(x, rate, offs, device=cuda_device)
+    want = chan.channelize(cplx.from_numpy(np.ascontiguousarray(x),
+                                           cuda_device), rate, offs)
+    torch.cuda.synchronize()
+    assert got[0].shape == (170, x.size // 16)
+    assert_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_back_to_back_captures_each_equal_their_own_reference(cuda_device):
+    """Three captures of 8 slabs each, every slab different, channelized
+    back to back without a wait: a slab refilled before the copy that read
+    it ran would hand one call another's samples."""
+    rate = 30.72e6
+    n = chan.SLAB_BYTES // 8 * 7 + 12345                # 8 slabs
+    rng = np.random.default_rng(3)
+    xs = [unit_noise(rng, n) for _ in range(3)]
+    offs = band_centres()[::17]
+    chan.channelize(xs[0], rate, offs, device=cuda_device)      # warm-up
+    torch.cuda.synchronize()
+    got = [chan.channelize(x, rate, offs, device=cuda_device) for x in xs]
+    torch.cuda.synchronize()
+    for x, g in zip(xs, got):
+        assert_bits(g, chan.channelize(cplx.from_numpy(x, cuda_device),
+                                       rate, offs))
+
+
+@pytest.mark.cuda
+def test_the_upload_counts_slabs_and_bytes_and_copies_nothing_pageable(
+        cuda_device, tmp_path):
+    """counts["upload_slabs"] grows by ceil(8 n / SLAB_BYTES) a call and
+    "upload_bytes" by 8 n; under a profiler no pageable host-to-device copy
+    runs inside "channelize"."""
+    import json
+
+    rate = 30.72e6
+    n = chan.SLAB_BYTES // 8 * 3 + 1001                 # 4 slabs
+    x = unit_noise(np.random.default_rng(8), n)
+    offs = band_centres()[:16]
+    chan.channelize(x, rate, offs, device=cuda_device)          # warm-up
+    before = dict(chan.counts)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            chan.channelize(x, rate, offs, device=cuda_device)
+        torch.cuda.synchronize()
+    assert chan.counts["upload_slabs"] - before["upload_slabs"] == 2 * 4
+    assert chan.counts["upload_bytes"] - before["upload_bytes"] == 2 * 8 * n
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    copies = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"]
+    assert sum("HtoD" in c and "Pinned" in c for c in copies) >= 2 * 4, \
+        copies
+    assert not [c for c in copies if "Pageable" in c], copies
