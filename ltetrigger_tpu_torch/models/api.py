@@ -29,13 +29,31 @@ Everything it enqueues goes to the device's current stream, in order:
 On the CPU device the same code runs with ordinary tensors and every
 output is ready at once.  Nothing here moves work to the CPU when a card
 was asked for.
+
+Tracing: each dispatch starts a new call id (`profiling.next_call`); its
+stages are the spans `prep`, `scan` and `drain` (`StageTimer`).  Two
+spans with CUDA event pairs name the pipeline's own work: `stream.upload`
+(inside `prep`) around the upload of a segment and its write into the
+mirror, and `stream.harvest` around one drained dispatch: its unpack, the
+tracking note and the events applied to the stores.  `stream_counts`
+counts, for every pipeline of the process: "dispatches", "steps" (the
+half-frame steps dispatched, summed over dispatches), "upload_bytes" (the
+bytes staged for the narrow streams' uploads, in the transport's type)
+and "forced_drains" (harvests that waited for the device: `flush` and
+checkpoints).
+
+The `on_output` hook of `Trigger` and `MultiTrigger` (None by default)
+receives each drained dispatch's `trigger.StepOutput` of host arrays,
+[n_steps, *batch, R], and the drained stream positions before it,
+[*batch, R] int64, after its events have been applied.  A dispatch's
+rows past its active steps have `consumed` 0.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from collections import deque
+from collections import Counter, deque
 from fractions import Fraction
 from typing import Callable, NamedTuple, Optional
 
@@ -65,6 +83,8 @@ V2_WINDOW = correlate.V2_WINDOW
 # percentile 2.18, 99.9th 2.51); a cell at -18 dB, one subcarrier off, in
 # half (median 2.66): examples/cfo_probe_knee_torch.py --floor
 PROBE_MIN_PSR = 2.5
+# the streaming pipelines' counters (module docstring)
+stream_counts = Counter()
 
 
 def ensure_safe_threshold(t: float) -> float:
@@ -398,7 +418,8 @@ class _StreamPipeline:
     def __init__(self, batch: tuple, psr_threshold: float, track_after: int,
                  track_every: int, stores: list, on_track, on_drop,
                  pipeline: int, transport: str, cfo_search_range: int,
-                 device, first_stream: int = 0):
+                 device, first_stream: int = 0,
+                 on_output: Optional[Callable] = None):
         if transport not in self.TRANSPORTS:
             raise ValueError(f"transport {transport!r} is not one of "
                              f"{self.TRANSPORTS}")
@@ -415,6 +436,7 @@ class _StreamPipeline:
         self.stores = list(stores)
         self.on_track = on_track
         self.on_drop = on_drop
+        self.on_output = on_output
         self.pipeline = max(0, int(pipeline))
         # per-stage wall-clock accumulators (prep / scan / drain)
         self.timer = StageTimer()
@@ -490,6 +512,12 @@ class _StreamPipeline:
     @property
     def tracking(self):
         return _host(self._state.tracking)
+
+    @property
+    def peak(self):
+        """The last peak bin in [0, 9600) of each root: where, in the
+        half-frame grid, its PSS correlation peaked at its last search."""
+        return _host(self._state.peak)
 
     @property
     def cap_overflow(self):
@@ -593,6 +621,8 @@ class _StreamPipeline:
                 return False
 
         profiling.next_call()
+        stream_counts["dispatches"] += 1
+        stream_counts["steps"] += n_steps
         with self.timer.stage("prep"):
             self._trim_drained()
             # sync the device mirror up to what this dispatch can reach
@@ -651,11 +681,12 @@ class _StreamPipeline:
         new = max(hi - have_end, 0)
         if new == 0 and shift == 0:
             return
-        up_r, up_i, scale = self._upload_segment(have_end, new)
-        bins = self._cfo_bins.reshape(self._batch)
-        self._dev = _mirror_advance(
-            self._dev[0], self._dev[1], up_r, up_i, scale, shift,
-            have_end - new_base, bins, have_end)
+        with profiling.span("stream.upload", device=self.device):
+            up_r, up_i, scale = self._upload_segment(have_end, new)
+            bins = self._cfo_bins.reshape(self._batch)
+            self._dev = _mirror_advance(
+                self._dev[0], self._dev[1], up_r, up_i, scale, shift,
+                have_end - new_base, bins, have_end)
         self._dev_base = new_base
         self._dev_len = max(hi, have_end) - new_base
 
@@ -672,6 +703,7 @@ class _StreamPipeline:
         scale = np.array([_quantize_into(buf.view(a, a + new),
                                          self.transport, view[i])
                           for i, buf in enumerate(self._bufs)], np.float32)
+        stream_counts["upload_bytes"] += view.nbytes
         up = up.to(self.device, non_blocking=True)
         if i4:
             up_r, up_i = _unpack_i4(up.reshape(self._batch + (new,)))
@@ -738,16 +770,20 @@ class _StreamPipeline:
         pending."""
         if force and self._outstanding \
                 and self._outstanding[-1].ready is not None:
+            stream_counts["forced_drains"] += 1
             with self.timer.stage("drain"):
                 self._outstanding[-1].ready.synchronize()
         while self._outstanding and self._ready_head():
             d = self._outstanding.popleft()
-            with self.timer.stage("drain"):
-                host = trig.unpack_output(d.out)
-            pos_before = self._pos_lb.copy()
-            self._pos_lb += host.consumed.sum(axis=0).astype(np.int64)
-            self._note_tracking(host)
-            self._apply_events(host, published, pos_before)
+            with profiling.span("stream.harvest", device=self.device):
+                with self.timer.stage("drain"):
+                    host = trig.unpack_output(d.out)
+                pos_before = self._pos_lb.copy()
+                self._pos_lb += host.consumed.sum(axis=0).astype(np.int64)
+                self._note_tracking(host)
+                self._apply_events(host, published, pos_before)
+            if self.on_output is not None:
+                self.on_output(host, pos_before)
             self._prune_anchors()
             if self.done:
                 self._outstanding.clear()
@@ -881,6 +917,10 @@ class Trigger(_StreamPipeline):
     implicitly), or construct with pipeline=0 for fully synchronous
     per-call semantics.  exit_on_success implies synchronous calls (the
     searcher use case wants the answer before returning).
+
+    on_output: called with each drained dispatch's StepOutput of host
+    arrays, [n_steps, R], and the drained positions before it, [R]
+    (module docstring); None by default.
     """
 
     def __init__(self, psr_threshold: float = DEFAULT_PSR_THRESHOLD,
@@ -891,12 +931,13 @@ class Trigger(_StreamPipeline):
                  on_track: Optional[Callable[[Cell], None]] = None,
                  on_drop: Optional[Callable[[int], None]] = None,
                  pipeline: int = 2, transport: str = "i16",
-                 cfo_search_range: int = 0, device="cuda"):
+                 cfo_search_range: int = 0, device="cuda",
+                 on_output: Optional[Callable] = None):
         super().__init__((), psr_threshold, track_after, track_every,
                          [cellstore if cellstore is not None
                           else CellStore()],
                          on_track, on_drop, pipeline, transport,
-                         cfo_search_range, device)
+                         cfo_search_range, device, on_output=on_output)
         self.exit_on_success = exit_on_success
 
     @property

@@ -33,6 +33,12 @@ returns the events of the rank's own streams, with global stream indices
 rank owns stays empty.  The shared-consumption group is then the rank's own
 streams.  `save_state` / `load_state` are the only collectives: one
 checkpoint file with global shapes, whatever the mesh.
+
+Tracing and the output hook are the pipeline's (models/api.py module
+docstring): a dispatch's `prep` / `scan` / `drain` stages, the spans
+`stream.upload` and `stream.harvest`, `api.stream_counts`, and
+`on_output`, which receives every drained dispatch's StepOutput
+[n_steps, n, R] of this process's streams (`local_streams`).
 """
 
 from __future__ import annotations
@@ -80,6 +86,10 @@ class MultiTrigger(api._StreamPipeline):
     axis and run on `mesh.device` (see the module docstring).  `n` counts
     the streams this process scans (`local_streams`, a range of global
     indices), `n_streams` all of them; telemetry and `backlog` have `n` rows.
+
+    on_output: called with each drained dispatch's StepOutput of host
+    arrays, [n_steps, n, R], and the drained positions before it, [n, R]
+    (models/api.py module docstring); None by default.
     """
 
     TRANSPORTS = ("f32", "i16", "i8", "i4")
@@ -93,7 +103,8 @@ class MultiTrigger(api._StreamPipeline):
                  on_track: Optional[Callable[[int, Cell], None]] = None,
                  on_drop: Optional[Callable[[int, int], None]] = None,
                  pipeline: int = 2, transport: str = "i16",
-                 cfo_search_range: int = 0, device="cuda", mesh=None):
+                 cfo_search_range: int = 0, device="cuda", mesh=None,
+                 on_output: Optional[Callable] = None):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         if cellstores is None:
@@ -110,7 +121,7 @@ class MultiTrigger(api._StreamPipeline):
                          track_every, cellstores, on_track, on_drop,
                          pipeline, transport, cfo_search_range,
                          device if mesh is None else mesh.device,
-                         first_stream=lo)
+                         first_stream=lo, on_output=on_output)
 
     @property
     def backlog(self) -> np.ndarray:
