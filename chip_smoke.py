@@ -64,6 +64,15 @@ Phases, in order; any failure exits non-zero:
      subcarriers, all three bit for bit its schedule in PyTorch
      (`schedule_model`); times, the bound (bytes and adds), one lane
      alone, residency;
+ 3e. pass C's front end (csrc/pass_c_front.cu: front_estimate, the ring,
+     front_decide) against its plain version (`front_plain`) at the main
+     path's shapes, a Trigger's [16, 3], a MultiTrigger(8)'s [4, 8, 3],
+     scan512's [200, 512, 3] and the band's [400, 170, 3], on the inputs
+     tests/test_torch_pass_c_front.py makes: decisions exact except the
+     plain version's near-ties (counted), the capture outputs exact on the
+     lanes without one, ring / means / rotation / channel estimate within
+     1e-5 relative; times beside the plain version and the bound,
+     residency;
   4. the main path: `search(device="cuda")` over 1 s of four synthetic cells
      at 1.92 / 7.68 / 15.36 / 30.72 Msps, then the CLI on a capture file,
      with the three kernels' launch counts set to 0 before them and read
@@ -251,15 +260,17 @@ Phases, in order; any failure exits non-zero:
      module from a file outside its own directory.
 
 Nothing of phases 1-21 was cut to make room for the later ones.
-`python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3d alone
+`python3 chip_smoke.py --kernels [--parent DIR]` runs phases 1-3e alone
 and ends with {"ok": null, "partial": "kernels"}: it drives no path.
 
-Every path is driven with the six kernels' launch counts (matched filter
+Every path is driven with the kernels' launch counts (matched filter
 "mf", pass B "pb", TTI chain "tti", Viterbi "vit", CFO ring "ring",
-channelizer "chan", which the wideband paths launch) set to 0 just before
-it and read just after; each must have launched the first five, the TTI
-chain exactly as often as the Viterbi (one of each a decoding dispatch),
-and the CFO ring at least as often (one a dispatch that extracts); each
+channelizer "chan", which the wideband paths launch, and pass C's front
+end "front", a count of its calls) set to 0 just before it and read just
+after; each must have launched the first five, the TTI chain exactly as
+often as the Viterbi (one of each a decoding dispatch), the front end at
+least as often (one call a dispatch that extracts) and the CFO ring at
+least as often as the front end (one launch in each call); each
 rank x plan of phases 20 and 21 is a path of its own; the paths that run
 in other processes (the ranks, the example tools' groups and seam sweep)
 report every kernel's count in their JSON, and the attribution tool's
@@ -325,18 +336,21 @@ class Counts(dict):
         return " / ".join(f"{self.get(k, 0)} {k}" for k in KERNELS)
 
 
-KERNELS = ("mf", "pb", "tti", "vit", "ring", "chan")
+KERNELS = ("mf", "pb", "tti", "vit", "ring", "chan", "front")
 # the kernels every path launches
 PATH_KERNELS = ("mf", "pb", "tti", "vit", "ring")
 
 
 def ran(n: dict) -> bool:
     """A path's launches `n`: every kernel of PATH_KERNELS launched, the TTI
-    chain as often as the Viterbi, and the CFO ring at least as often (one
-    a dispatch that extracts, and every decoding dispatch extracts)."""
+    chain as often as the Viterbi, pass C's front end at least as often
+    (one a dispatch that extracts, and every decoding dispatch extracts),
+    and the CFO ring at least as often as the front end (which launches it
+    once a call)."""
     return (all(n.get(k, 0) for k in PATH_KERNELS)
             and n.get("tti", 0) == n.get("vit", 0)
-            and n.get("ring", 0) >= n.get("tti", 0))
+            and n.get("front", 0) >= n.get("tti", 0)
+            and n.get("ring", 0) >= n.get("front", 0))
 
 
 def reset_launches() -> None:
@@ -693,6 +707,87 @@ def near_tie(llr: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
     from ltetrigger_tpu_torch.ops import viterbi
     top = viterbi.final_metrics(llr)[0].topk(2, dim=-1).values
     return top[:, 0] - top[:, 1] <= rel * top[:, 0].abs().clamp(min=1.0)
+
+
+def front_bound(lanes: int, s: int) -> tuple[float, str]:
+    """Least milliseconds for pass C's front end over s steps of `lanes`
+    lanes: each lane-step's 512-sample slot-0 tail read once (8 bytes a
+    sample) and its outputs written once, over the memory rate; its FMAs
+    (the 62 x 128 complex DFT, 31 744; the PSS correlation, 512; the
+    rotation, 2048; the CP scores, 328; the two 31 x 31 shift searches,
+    3844), over the float32 rate of one an instruction."""
+    ops = lanes * s * (4 * 62 * 128 + 4 * 128 + 4 * 512 + 8 * (9 + 32)
+                       + 2 * 2 * 31 * 31)
+    nbytes = lanes * s * (8 * 512 + 4 * 4 + 4) + lanes * (62 * 2 * 4)
+    return roofline(ops, nbytes)
+
+
+FRONT_SHAPES = (("Trigger [16, 3]", (), 16, 16),
+                ("MultiTrigger(8) [4, 8, 3]", (8,), 4, 4),
+                ("scan512 [200, 512, 3]", (512,), 200, 16),
+                ("band [400, 170, 3]", (170,), 400, 16))
+
+
+def front_kernel_rows(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 3e: pass C's front end (`pass_c_front.front_kernel`: two
+    kernels around the CFO ring) against `front_plain` at the main path's
+    four shapes, on the inputs tests/test_torch_pass_c_front.py makes
+    (seeded noise, a synthetic cell in every other channel, lost steps,
+    published and pending_fresh lanes, steps past data_valid): the
+    decisions exact except the plain version's near-ties (counted), the
+    capture outputs exact on every lane without one, the ring, means,
+    rotation and channel estimate within 1e-5 relative; then the wrapper
+    call, replayed from a CUDA graph and 20 a graph, beside the plain
+    version and the bound; the residency of front_decide.
+    returns ({label: row}, kernel_info)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "tests"))
+    import test_torch_pass_c_front as tf
+    from ltetrigger_tpu_torch.ops.kernels import pass_c_front as fk
+    rows = {}
+    for label, batch, s, k in FRONT_SHAPES:
+        case = tf.make_case(batch, s, k, seed=31 * s + k, device=dev,
+                            cut=3000, p_emit=0.9)
+        got, ref = fk.front_kernel(*case), fk.front_plain(*case)
+        torch.cuda.synchronize()
+        ties = tf.near_ties(case, ref)
+        ok, keep = ~ties, ~ties.any(dim=0)
+        for f in ("normal_cp", "cell_id"):
+            assert torch.equal(getattr(got, f)[ok], getattr(ref, f)[ok]), \
+                (label, f)
+        for f in ("at", "cand_cell", "cand_cp", "cand_fresh", "cand_start",
+                  "valid", "cnt", "pending_fresh", "overflow"):
+            assert torch.equal(getattr(got, f)[keep],
+                               getattr(ref, f)[keep]), (label, f)
+        assert torch.equal(got.want_cap.movedim(0, -1)[keep],
+                           ref.want_cap.movedim(0, -1)[keep]), label
+        assert torch.equal(got.count, ref.count), label
+        err = {}
+        for f in ("ring", "cfo_mean", "freq", "chest"):
+            a, b = getattr(got, f), getattr(ref, f)
+            tf.assert_close_rel(a, b, f"{label} {f}")
+            err[f] = float(((a - b).abs()
+                            / b.abs().clamp(min=1e-30)).max())
+        t = paired_ms(lambda: fk.front_kernel(*case))
+        pms = cuda_ms(lambda: fk.front_plain(*case), iters=3)
+        lanes = math.prod(batch) * 3
+        bms, by = front_bound(lanes, s)
+        rows[label] = dict(shape=label, **t, plain_ms=pms, bound_ms=bms,
+                           bound_by=by, near_ties=int(ties.sum()),
+                           tied_lanes=int((~keep).sum()),
+                           captures=int(got.cnt.sum()))
+        log(f"pass C front end {label}: kernels = plain version (decisions "
+            f"exact but {int(ties.sum())} near-ties in {int((~keep).sum())} "
+            f"lanes; {int(got.cnt.sum())} captures; ring / mean / freq / "
+            f"chest within 1e-5 relative); {pairs_text(t)}, plain "
+            f"{pms:.4f} ms, bound {bms:.5f} ms ({by}) [{smi}]")
+        del case, got, ref
+    info = fk.kernel_info()
+    residency("pass C front end front_decide", info,
+              lambda n, sms: fk.launch_plan(n, 1, sms),
+              [("24 lanes", 24), ("510 lanes", 510), ("1536 lanes", 1536)],
+              smi)
+    return rows, info
 
 
 def parent_kernels(tree: pathlib.Path) -> tuple[dict, float]:
@@ -2751,13 +2846,17 @@ def main() -> int:
     ring_info = rk.kernel_info()
     residency("CFO-ring kernel ring_scan_kernel", ring_info, rk.launch_plan,
               [("48 lanes", 48), ("3072 lanes", 3072)], smi)
-    if only_kernels:    # phases 1-3d alone: no path driven, no success line
+    # ---- 3e. pass C's front end against its plain version ----
+    front_rows, front_info = front_kernel_rows(dev, smi)
+    if only_kernels:    # phases 1-3e alone: no path driven, no success line
         log(json.dumps({"pass_b": list(pb_rows.values()),
                         "viterbi": list(vit_rows.values()),
                         "tti": list(tti_rows.values()),
                         "ring": list(ring_rows.values()),
+                        "front": list(front_rows.values()),
                         "pb_info": pb_info, "vit_info": vit_info,
                         "tti_info": tti_info, "ring_info": ring_info,
+                        "front_info": front_info,
                         "launch_floor": floor}))
         log(smi)
         print(json.dumps({"ok": None, "partial": "kernels"}))
@@ -3818,8 +3917,8 @@ def main() -> int:
         else:
             ok = ran(n)
         assert ok, f"{path}: a kernel never launched, or the TTI chain " \
-            f"and Viterbi disagree, or the ring ran less often than the " \
-            f"TTI chain: {n}"
+            f"and Viterbi disagree, or the front end ran less often than " \
+            f"the TTI chain or more often than the ring: {n}"
     log(f"make_snr_curve_torch --trials 2 --step 4: both files written, "
         f"knees (dB) {knees}, {time.perf_counter() - t0:.1f} s, "
         f"{read_launches()} kernel launches [{payload['device']}]")
@@ -3930,6 +4029,7 @@ def main() -> int:
     t128 = tti_rows[f"{C_BIG} x 3 lanes K=16 combine=True"]
     r400 = ring_rows["48 lanes S=400"]
     chan_band = chan_rows["band C=170, 2 s"]
+    f512 = front_rows[FRONT_SHAPES[2][0]]
 
     def by_path(k):
         return {path: n.get(k, 0) for path, n in path_launches.items()
@@ -4028,6 +4128,22 @@ def main() -> int:
         "bound_by": chan_band["bound_by"],
         "library_ms": None,
         "shapes": list(chan_rows.values()),
+    }, {
+        "name": "pass_c_front.front",
+        "route": "cuda",
+        "source": "ltetrigger_tpu_torch/csrc/pass_c_front.cu",
+        "replaces": "none (jnp: ltetrigger_tpu/models/trigger.py "
+                    "_mib_postpass)",
+        "launches": sum(by_path("front").values()),
+        "launches_by_path": by_path("front"),
+        "near_ties": sum(r["near_ties"] for r in front_rows.values()),
+        "ms": f512["ms"],
+        "replay_ms": f512["replay_ms"],
+        "plain_ms": f512["plain_ms"],
+        "bound_ms": f512["bound_ms"],
+        "bound_by": f512["bound_by"],
+        "library_ms": None,
+        "shapes": list(front_rows.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

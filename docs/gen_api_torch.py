@@ -5,7 +5,7 @@ port, ltetrigger_tpu_torch (docs/gen_api.py renders the JAX package's).
 The docstrings are the source of truth; this script renders the public
 functions and classes of the port's counterparts of docs/gen_api.py's
 modules, plus the port's own `ops.kernels.{matched_filter,pass_b,
-tti_chain,viterbi,cfo_ring,channelize,build}`, `ops.device` and
+tti_chain,viterbi,cfo_ring,pass_c_front,channelize,build}`, `ops.device` and
 `runtime.native`,
 into one markdown file.  Deterministic; imports torch and
 the port, nothing of JAX.
@@ -51,6 +51,7 @@ MODULES = [
     "ltetrigger_tpu_torch.ops.kernels.tti_chain",
     "ltetrigger_tpu_torch.ops.kernels.viterbi",
     "ltetrigger_tpu_torch.ops.kernels.cfo_ring",
+    "ltetrigger_tpu_torch.ops.kernels.pass_c_front",
     "ltetrigger_tpu_torch.ops.kernels.channelize",
     "ltetrigger_tpu_torch.ops.kernels.build",
     "ltetrigger_tpu_torch.ltecore.constants",

@@ -11,8 +11,9 @@ the span the card spent from the region's first kernel to its last (it
 equals the host's ms where the host's launches are the bottleneck and is
 shorter where the host waited for the card).  On the CPU it is null.  A
 `passes` rung also carries `launches_by_kernel`: every hand kernel's
-launches ("mf", "pb", "tti", "vit", "ring", "chan") over the rung's calls,
-warm-up included (all 0 on the CPU, where the plain versions run).
+launches ("mf", "pb", "tti", "vit", "ring", "chan"; "front" counts pass
+C's front-end calls) over the rung's calls, warm-up included (all 0 on the
+CPU, where the plain versions run).
 
 Subcommands:
   passes  [--channels C] [--steps S]

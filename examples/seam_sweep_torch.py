@@ -24,8 +24,8 @@ gloo); without it and without torchrun the world is this one process (t =
 1).  `--device` defaults to cuda and raises where there is no card.  Every
 rank draws the same seeded noise; rank 0 prints a JSON line per SNR and the
 summary line (with `n_shards` and `launches_by_kernel`, every hand
-kernel's launches on rank 0: "mf", "pb", "tti", "vit", "ring", "chan") as its
-last.
+kernel's launches on rank 0: "mf", "pb", "tti", "vit", "ring", "chan",
+"front") as its last.
 """
 
 import argparse

@@ -11,10 +11,12 @@ observable contract, in PyTorch's idiom.
           EMA'd correlation power, peak/PSR, hysteresis score/timer/tracking,
           PSR telemetry ring; one launch of the hand-written CUDA kernel per
           group (ops/kernels/pass_b.py).
-  pass C  batched over the step axis: slot-0 tail extraction, CFO estimate
-          and ring (one launch of the hand-written CUDA kernel
-          ops/kernels/cfo_ring.py at any dispatch length), CP detect, SSS,
-          MIB capture selection, then one batched PBCH + Viterbi decode of
+  pass C  batched over the step axis: the front end, slot-0 tail
+          extraction, CFO estimate and ring, rotation, PSS channel
+          estimate, CP detect, SSS and MIB capture selection (on a card
+          the hand-written CUDA kernels ops/kernels/pass_c_front.py, two
+          launches around one of ops/kernels/cfo_ring.py, at any dispatch
+          length), then one batched PBCH + Viterbi decode of
           the captured candidates with the 40 ms TTI soft-combining
           accumulator (one launch each of the hand-written CUDA kernels
           ops/kernels/tti_chain.py and ops/kernels/viterbi.py), and the
@@ -66,26 +68,25 @@ import torch
 from ..ltecore.constants import (DEFAULT_TRACK_AFTER,
                                  DEFAULT_TRACK_EVERY,
                                  HALF_FRAME_LENGTH,
-                                 MOVING_AVG_SZ,
-                                 PSS_SYMBOL_START, SLOT_LENGTH,
+                                 MOVING_AVG_SZ, SLOT_LENGTH,
                                  SYMBOL_SZ)
 from ..ops import cfo as cfo_ops
-from ..ops import correlate, cplx, dft, pbch, sync
+from ..ops import correlate, cplx, pbch
 from ..ops.device import resolve_device
-from ..ops.kernels import cfo_ring, matched_filter, pass_b, tti_chain
+from ..ops.kernels import matched_filter, pass_b, pass_c_front, tti_chain
 from ..ops.kernels.cfo_ring import ring_mean as _ring_mean
+# the slot-0 geometry and the zero-padded read live with pass C's front end
+from ..ops.kernels.pass_c_front import LOOKBACK, SEG, SEG_OFF  # noqa: F401
+from ..ops.kernels.pass_c_front import read as _read
 from ..utils.profiling import span, tracing
 
 R = 3                                   # N_id_2 hypotheses
-LOOKBACK = PSS_SYMBOL_START             # 832 samples of history before grid0
 WINDOW = LOOKBACK + correlate.V2_WINDOW                # 10560
 K_CANDIDATES = 16                       # MIB candidate slots (long dispatches)
 K_STEP_CAP = 32                         # up to here: one capture slot a step
 # max batch*g steps per pass-A group (bounds the power tensor to about
 # GROUP_BUDGET * 115 KB); a larger budget gives pass B fewer, larger groups
 GROUP_BUDGET = int(os.environ.get("LTETRIGGER_GROUP_BUDGET", "4096"))
-SEG = 512                               # slot-0 tail gathered per step
-SEG_OFF = SLOT_LENGTH - SEG
 # pass C reads up to this far past the last grid step; the JAX engine pads
 # its buffer by n_steps * 9600 + this many zeros
 _PAD_TAIL = 640
@@ -202,27 +203,6 @@ def state_to_numpy(state: TriggerState) -> dict:
     return {f: getattr(state, f).cpu().numpy() for f in TriggerState._fields}
 
 
-def _read(comp: torch.Tensor, starts: torch.Tensor, length: int,
-          lead: int = 0) -> torch.Tensor:
-    """Contiguous reads comp[*B, starts + [0, length)] for starts
-    [*B, ...] -> [*B, ..., length]; positions outside [0, N) read as zero
-    (the JAX engine's zero pad).  `lead` counts leading dims of `starts`
-    that come before the batch dims: they are moved behind it."""
-    nb = comp.ndim - 1
-    st = starts.to(torch.int64)
-    if lead:
-        st = st.movedim(tuple(range(lead)), tuple(range(nb, nb + lead)))
-    n = comp.shape[-1]
-    idx = st[..., None] + torch.arange(length, device=comp.device)
-    ok = (idx >= 0) & (idx < n)
-    flat = torch.clamp(idx, 0, n - 1).reshape(comp.shape[:-1] + (-1,))
-    out = torch.where(ok, torch.gather(comp, -1, flat).reshape(idx.shape),
-                      0.0)
-    if lead:
-        out = out.movedim(tuple(range(nb, nb + lead)), tuple(range(lead)))
-    return out
-
-
 # ======================================================================
 # pass A — grid correlation
 # ======================================================================
@@ -318,54 +298,6 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=0).values
 
 
-def _capture_chain(state0: TriggerState, raw: RawStepOutput, sss_valid,
-                   sub5, cell_id, gatherable, k: int):
-    """Per-step capture selection (reference mib tag gating + in-scan
-    published_live reacquisition).  All inputs [S, .., R].
-    Returns (want_cap, slot, fresh, cnt, pending_fresh_final, overflow)."""
-    tagged = raw.emit & (~raw.lost) & sss_valid
-
-    # published_live: starts at `published`, cleared by any in-chunk loss
-    not_lost_cum = torch.cumprod(1 - raw.lost.to(torch.int32), dim=0)
-    p_live_after = state0.published[None] & (not_lost_cum > 0)
-    p_live_before = torch.cat(
-        [state0.published[None].expand_as(p_live_after[:1]),
-         p_live_after[:-1]], dim=0)
-    # the step's own loss clears the gate before capture gating
-    p_gate = p_live_before & (~raw.lost)
-
-    want_any = tagged & (~p_gate) & (~sub5)
-    eligible = want_any & gatherable
-    elig_i = eligible.to(torch.int32)
-    cum_excl = torch.cumsum(elig_i, dim=0) - elig_i
-    want_cap = eligible & (cum_excl < k)
-    slot = torch.where(want_cap, cum_excl, -1)
-    overflow = (want_any & (~want_cap)).sum(dim=0, dtype=torch.int32)
-    cnt = want_cap.to(torch.int32).sum(dim=0)
-
-    # (pending_fresh, mib_cell) chain in closed form: a capture sets the
-    # cell and clears pf, a loss sets pf (never both in one step)
-    s = want_cap.shape[0]
-    tt = torch.arange(s, device=cell_id.device).reshape(
-        (s,) + (1,) * (want_cap.ndim - 1))
-    last_cap = _cummax(torch.where(want_cap, tt, -1))
-    last_lost = _cummax(torch.where(raw.lost, tt, -1))
-    neg1 = torch.full_like(last_cap[:1], -1)
-    last_cap_x = torch.cat([neg1, last_cap[:-1]], dim=0)
-    last_lost_x = torch.cat([neg1, last_lost[:-1]], dim=0)
-    cell_at = torch.take_along_dim(cell_id, torch.clamp(last_cap_x, min=0),
-                                   dim=0)
-    cell_before = torch.where(last_cap_x >= 0, cell_at,
-                              state0.mib_cell[None])
-    pf_before = torch.where((last_cap_x < 0) & (last_lost_x < 0),
-                            state0.pending_fresh[None],
-                            last_lost_x > last_cap_x)
-    fresh = pf_before | (cell_id != cell_before)
-    pf_f = torch.where((last_cap[-1] < 0) & (last_lost[-1] < 0),
-                       state0.pending_fresh, last_lost[-1] > last_cap[-1])
-    return want_cap, slot, fresh, cnt, pf_f, overflow
-
-
 def _decode_candidates(state0: TriggerState, buffer: cplx.Pair,
                        cand_start, cand_freq, cand_cell, cand_cp, cand_fresh,
                        valid, combine: bool):
@@ -451,75 +383,21 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
             cell_id_o, normal_cp_o = zero_i, zero_b
             cfo_mean = mean0[None].expand(shape)
         else:
-            with span("pass_c.sync"):
-                # -- slot-0 tail of each step: buf[grid + peak - 384 : +SEG] --
-                gridx = raw.grid.to(torch.int64).reshape(
-                    (s,) + (1,) * (len(batch) + 1))
-                st0 = gridx + raw.peak - LOOKBACK  # slot-0 start [S, .., R]
-                seg = (_read(buffer[0], st0 + SEG_OFF, SEG, lead=1),
-                       _read(buffer[1], st0 + SEG_OFF, SEG, lead=1))
-
-                # ---- CFO estimate (on the PSS symbol) + ring recurrence --
-                reps = cfo_ops.on_device("time", str(dev))
-                pss_sym = cplx.index(seg, (..., slice(SEG - SYMBOL_SZ, SEG)))
-                est = cfo_ops.cfo_estimate(pss_sym, reps)       # [S, .., R]
-                push = raw.emit & raw.tracking
-                ring_f, count_f, cfo_mean = cfo_ring.ring_scan(
-                    state0.cfo_ring, state0.cfo_count, est, push, raw.lost)
-
-                # ---- rotate, CP detect, SSS ----
-                freq = torch.where(raw.tracking, -cfo_mean / SYMBOL_SZ, 0.0)
-                sf = cfo_ops.cfo_rotate(seg, freq, SEG_OFF)
-
-                # ---- PSS LS channel estimate of the last tracked step ----
-                tt_c = torch.arange(s, device=dev).reshape(
-                    (s,) + (1,) * (push.ndim - 1))
-                last_push = torch.where(push, tt_c, -1).amax(dim=0)  # [..R]
-                lp = torch.clamp(last_push, min=0)[None, ..., None]
-                sym = tuple(torch.take_along_dim(
-                    comp[..., SEG - SYMBOL_SZ:], lp, dim=0)[0] for comp in sf)
-                chv = cplx.mul_conj(dft.dft_sync(sym),
-                                    cfo_ops.on_device("freq", str(dev)))
-                chest_f = torch.where((last_push >= 0)[..., None, None],
-                                      torch.stack(chv, dim=-1), state0.chest)
-
-                normal_cp = sync.detect_cp(sf, end=SEG)
-                nid2 = torch.arange(R, device=dev)
-                n_id_1, sub5 = sync.sss_decode(sf, nid2, normal_cp, end=SEG)
-                sss_valid = n_id_1 >= 0
-                cell_id = (3 * torch.clamp(n_id_1, min=0) + nid2).to(
-                    torch.int32)
-
-            with span("pass_c.capture"):
-                # ---- capture selection ----
-                gatherable = st0 + 2 * SLOT_LENGTH <= data_valid
-                want_cap, slot, fresh, cnt, pf_f, overflow = _capture_chain(
-                    state0, raw, sss_valid, sub5, cell_id, gatherable, k)
-                # each step's slot, step axis last [.., R, S]; a step that
-                # captures nothing writes to a spare slot k, dropped after
-                at = torch.where(want_cap, slot, k).movedim(0, -1)
-
-                def scatter(v):             # [S, .., R] -> [.., R, K]
-                    v = v.expand(shape).movedim(0, -1)
-                    spare = v.new_zeros(v.shape[:-1] + (k + 1,))
-                    return spare.scatter_(-1, at, v)[..., :k]
-
-                cand_cell = scatter(cell_id)
-                cand_cp = scatter(normal_cp)
-                cand_fresh = scatter(fresh)
-                cand_start = scatter(st0 + SLOT_LENGTH)
-                cand_freq = scatter(freq)
-                valid = torch.arange(k, device=dev) < cnt[..., None]
+            # slot-0 read, CFO estimate and ring, rotation, channel
+            # estimate, CP, SSS and capture selection (spans "pass_c.sync"
+            # and "pass_c.capture"): ops/kernels/pass_c_front.py
+            fr = pass_c_front.front(state0, raw, buffer, data_valid, k)
 
             if do_decode is None:
                 host_syncs["capture"] += 1
                 with span("wait.capture"):
-                    do_decode = bool(cnt.sum() > 0)
+                    do_decode = bool(fr.cnt.sum() > 0)
             if do_decode:                   # any candidate captured
                 (found, prb_rk, ports_rk, pext_rk, pres_rk, sfn_rk,
                  acc_f, n_f, cell_f) = _decode_candidates(
-                    state0, buffer, cand_start, cand_freq, cand_cell,
-                    cand_cp, cand_fresh, valid, combine)
+                    state0, buffer, fr.cand_start, fr.cand_freq,
+                    fr.cand_cell, fr.cand_cp, fr.cand_fresh, fr.valid,
+                    combine)
             else:
                 zi = torch.zeros(batch + (R, k), dtype=torch.int32,
                                  device=dev)
@@ -532,7 +410,7 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
         with span("pass_c.events"):
             if do_extract:
                 # ---- publish once per epoch (cumulative fresh count) ----
-                fresh_eff = cand_fresh & valid
+                fresh_eff = fr.cand_fresh & fr.valid
                 e = torch.cumsum(fresh_eff.to(torch.int32), dim=-1)
                 same_ep = e[..., :, None] == e[..., None, :]  # [.., R, K, K]
                 ks = torch.arange(k, device=dev)
@@ -543,29 +421,31 @@ def _mib_postpass(state0: TriggerState, final: TriggerState,
                                             & (e == 0))
 
                 # ---- map candidate verdicts back to step space ----
-                taken = torch.clamp(at, max=k - 1)
+                taken = torch.clamp(fr.at, max=k - 1)
 
                 def gather(a):              # [.., R, K] -> [S, .., R]
                     return torch.gather(a, -1, taken).movedim(-1, 0)
 
-                track_event = want_cap & gather(is_pub)
+                track_event = fr.want_cap & gather(is_pub)
 
                 def fld(a):
                     return torch.where(track_event, gather(a), 0).to(
                         torch.int32)
 
                 mid_final = final._replace(
-                    cfo_ring=ring_f, cfo_count=count_f,
+                    cfo_ring=fr.ring, cfo_count=fr.count,
                     llr_acc=acc_f.reshape(batch + (R, 12, 120)),
-                    mib_n=n_f, mib_cell=cell_f, pending_fresh=pf_f,
-                    cap_overflow=state0.cap_overflow + overflow,
-                    chest=chest_f)
+                    mib_n=n_f, mib_cell=cell_f,
+                    pending_fresh=fr.pending_fresh,
+                    cap_overflow=state0.cap_overflow + fr.overflow,
+                    chest=fr.chest)
                 lost_e = raw.lost
                 nof_prb, nof_ports, phich_ext, phich_res, sfn_offset = (
                     fld(prb_rk), fld(ports_rk), fld(pext_rk), fld(pres_rk),
                     fld(sfn_rk))
-                cell_id_o = cell_id
-                normal_cp_o = normal_cp.expand(shape)
+                cell_id_o = fr.cell_id
+                normal_cp_o = fr.normal_cp
+                cfo_mean = fr.cfo_mean
 
             # ---- published/drop state machine over steps ----
             # p[s] = (p[s-1] & ~lost[s]) | track[s]: the latest of the last

@@ -83,7 +83,7 @@ def test_seam_sweep_on_four_ranks_equals_jax():
     assert summary["n_shards"] == 4 and summary["curve"] == curve
     # every hand kernel's count, 0 where the plain versions run
     assert summary["launches_by_kernel"] == dict.fromkeys(
-        ("mf", "pb", "tti", "vit", "ring", "chan"), 0)
+        ("mf", "pb", "tti", "vit", "ring", "chan", "front"), 0)
     want = _jax_seam(SNRS, TRIALS, STEPS)
     assert curve == want
     assert {r["p_sharded"] for r in want} > {0.0, 1.0}   # one in between
@@ -104,7 +104,7 @@ def test_groups_follow_the_budget():
     rungs = [x for x in lines if "variant" in x]
     assert len(rungs) == 8 and all(
         x["launches_by_kernel"] == dict.fromkeys(
-            ("mf", "pb", "tti", "vit", "ring", "chan"), 0) for x in rungs)
+            ("mf", "pb", "tti", "vit", "ring", "chan", "front"), 0) for x in rungs)
     assert [x["variant"] for x in lines if "variant" in x] == [
         "pass_A_only", "passes_AB", "ABC_nodecode", "ABC_decode"] * 2
 

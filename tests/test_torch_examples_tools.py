@@ -169,7 +169,7 @@ def test_passes_ladder_equals_scan_engine_and_jax():
         assert r["device_ms"] is None
         # every hand kernel's count, 0 where the plain versions run
         assert r["launches_by_kernel"] == dict.fromkeys(
-            ("mf", "pb", "tti", "vit", "ring", "chan"), 0)
+            ("mf", "pb", "tti", "vit", "ring", "chan", "front"), 0)
     buf = bench_sweep_torch.make_buffer(2, 0.55, "cpu")
     _, want = trig.scan_engine(buf, trig.init_state(batch=(2,), device="cpu"),
                                10, 4.0, grid0=trig.LOOKBACK)

@@ -229,11 +229,19 @@ def test_each_hand_kernel_launches_under_its_span_on_the_card(tmp_path):
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     seen = collections.Counter()
-    for name, spans in _under(json.loads(path.read_text())["traceEvents"]):
+    under = _under(json.loads(path.read_text())["traceEvents"])
+    # between the "emit" and "capture" reads pass C's front end queues its
+    # three hand kernels and no other
+    front = [name for name, spans in under
+             if spans & {"pass_c.sync", "pass_c.capture"}]
+    assert len(front) == 3, front
+    for name, spans in under:
         for kernel, span in (("mf_stage_kernel", "scan_pass"),
                              ("mf_wgmma_kernel", "scan_pass"),
                              ("pb_scan_kernel", "scan_pass"),
                              ("ring_scan_kernel", "pass_c.sync"),
+                             ("front_estimate_kernel", "pass_c.sync"),
+                             ("front_decide_kernel", "pass_c.capture"),
                              ("tti_chain_kernel", "pass_c.decode"),
                              ("vit_wa_kernel", "pass_c.decode")):
             if kernel in name:
@@ -241,6 +249,8 @@ def test_each_hand_kernel_launches_under_its_span_on_the_card(tmp_path):
                 seen[kernel] += 1
     assert seen["pb_scan_kernel"] and seen["ring_scan_kernel"] \
         and seen["tti_chain_kernel"] and seen["vit_wa_kernel"], seen
+    assert seen["front_estimate_kernel"] == seen["front_decide_kernel"] \
+        == seen["ring_scan_kernel"], seen
     assert seen["mf_stage_kernel"] or seen["mf_wgmma_kernel"], seen
     names = collections.Counter(s.name for s in profiling.spans())
     assert names["wait.drain"] == names["readback.copy"] \
