@@ -621,7 +621,8 @@ def chan_kernel_rows(ck, cases, smi: str) -> dict:
                      for c in xp)
         dev = xp[0].device
         origins = torch.from_numpy(chan._phase_tables(
-            offn, -ck.BLOCK, -(-(n_wide + 2 * ck.BLOCK) // ck.BLOCK))).to(dev)
+            offs, rate, -ck.BLOCK,
+            -(-(n_wide + 2 * ck.BLOCK) // ck.BLOCK))).to(dev)
         ramps = torch.from_numpy(chan._ramp_table(offn)).to(dev)
 
         def kern():

@@ -38,9 +38,12 @@ mirror, and `stream.harvest` around one drained dispatch: its unpack, the
 tracking note and the events applied to the stores.  `stream_counts`
 counts, for every pipeline of the process: "dispatches", "steps" (the
 half-frame steps dispatched, summed over dispatches), "upload_bytes" (the
-bytes staged for the narrow streams' uploads, in the transport's type)
-and "forced_drains" (harvests that waited for the device: `flush` and
-checkpoints).
+bytes staged for the uploads, in the transport's type: the narrow
+streams', or `WidebandTrigger`'s wide row), "forced_drains" (harvests that
+waited for the device: `flush` and checkpoints) and, from
+`models.wideband.WidebandTrigger`, "wide_samples" (the wide samples of its
+uploads' payloads) and the spans `wide.upload` and `wide.mix` inside
+`stream.upload`.
 
 The `on_output` hook of `Trigger` and `MultiTrigger` (None by default)
 receives each drained dispatch's `trigger.StepOutput` of host arrays,

@@ -17,10 +17,18 @@ processing gain (+9 dB at ratio 8, +12 dB at 16).  A wide i8 upload
 (1 byte/sample) ~23 dB, still ~33 dB above the detection knee.
 
 Streaming correctness details:
-  * the mixer phase is the same mod-1 f64 host-table decomposition as
-    ops/channelize.py, evaluated at ABSOLUTE wide-stream indices (tracked
-    across coordinate rebases), so every channel's oscillator is
-    phase-continuous for the life of the stream;
+  * the mixer phase is the host-table decomposition of ops/channelize.py
+    (a block origin plus an in-block ramp), evaluated at ABSOLUTE
+    wide-stream indices (tracked across coordinate rebases), so every
+    channel's oscillator is phase-continuous for the life of the stream.
+    The origins are exact integer arithmetic where the centres are whole
+    Hz at a whole-Hz rate (`chan._phase_tables`; f64 mod 1 otherwise):
+    they depend on the block's absolute index modulo the rate alone, so
+    they lose no bits as the stream grows, and two uploads that
+    start on the absolute block grid give a sample the same phase, to the
+    last bit.  A stream fed in chunks of whole blocks, each taken up whole
+    by the next dispatch, repeats its lanes bit for bit wherever it and
+    every centre's mixer phase repeat;
   * each upload carries one 9600-sample context block per side, all of it
     real stream samples, so the decimator's transients never land in the
     mirror: segment boundaries are invisible to the detector;
@@ -33,6 +41,17 @@ of 8 half-frames because its jitted programs want static shapes.  This one
 channelizes exactly the wide span of the narrow samples the mirror lacks and
 writes exactly those; the mirror past its valid end stays zero, the engine
 reads nothing past it, and so the events are the same.
+
+Tracing: the wide front end replaces the narrow streams' upload, so its two
+spans (`utils.profiling.span`, each with a CUDA event pair on a card) open
+inside the pipeline's `stream.upload`: `wide.upload` around the wide row's
+quantisation into pinned memory, its `non_blocking` copy and its
+dequantisation on the device, and `wide.mix` around the phase origins (the
+host table and its copy) and the channelizer's launch.  In
+`api.stream_counts` it adds the wide row's staged bytes, its two context
+blocks included, to "upload_bytes", and counts in "wide_samples" the wide
+samples of each upload's payload.  `resident_lanes()` reads the
+channelized samples the device mirror holds.
 """
 
 from __future__ import annotations
@@ -47,6 +66,7 @@ from ..ltecore.constants import SAMPLE_RATE
 from ..ops import channelize as chan
 from ..runtime.cellstore import Cell
 from ..runtime.chunkbuf import ChunkBuffer
+from ..utils import profiling
 from . import api
 from . import trigger as trig
 from .multi import MultiTrigger
@@ -91,10 +111,9 @@ class WidebandTrigger(MultiTrigger):
 
         # this process's carriers (all of them without a mesh)
         own = slice(self.local_streams.start, self.local_streams.stop)
-        self._offs_norm = np.asarray(self.centers[own],
-                                     dtype=np.float64) / self.sample_rate
-        self._ramps = api._to_device(chan._ramp_table(self._offs_norm),
-                                     self.device)
+        self._offs_hz = np.asarray(self.centers[own], dtype=np.float64)
+        self._ramps = api._to_device(
+            chan._ramp_table(self._offs_hz / self.sample_rate), self.device)
         self._unit = torch.ones(self._batch, device=self.device)
         # wide host buffer; wide coord = narrow stream coord * ratio.
         # Starts with the LOOKBACK zeros' worth of wide samples plus one
@@ -170,21 +189,39 @@ class WidebandTrigger(MultiTrigger):
         length = new * self.ratio + 2 * BLOCK
         a = wlo - self._wbase           # >= 0: see _trim_front
         i4 = self.transport == "i4"
-        up, view = api._staging((() if i4 else (2,)) + (length,),
-                                api._HOST_TYPE[self.transport], self.device)
-        scale = api._quantize_into(self._wbuf.view(a, a + length),
-                                   self.transport, view)
-        up = up.to(self.device, non_blocking=True)
-        xpad = api._unpack_i4(up) if i4 else \
-            (up[0].to(torch.float32), up[1].to(torch.float32))
-        if scale != 1.0:
-            xpad = (xpad[0] * scale, xpad[1] * scale)
-        origins = chan._phase_tables(self._offs_norm, self._wabs + wlo,
-                                     -(-length // BLOCK))
-        seg = chan._channelize_scan(xpad, api._to_device(origins,
-                                                         self.device),
-                                    self._ramps, self.ratio, new)
+        with profiling.span("wide.upload", device=self.device):
+            up, view = api._staging((() if i4 else (2,)) + (length,),
+                                    api._HOST_TYPE[self.transport],
+                                    self.device)
+            scale = api._quantize_into(self._wbuf.view(a, a + length),
+                                       self.transport, view)
+            api.stream_counts["upload_bytes"] += view.nbytes
+            api.stream_counts["wide_samples"] += new * self.ratio
+            up = up.to(self.device, non_blocking=True)
+            xpad = api._unpack_i4(up) if i4 else \
+                (up[0].to(torch.float32), up[1].to(torch.float32))
+            if scale != 1.0:
+                xpad = (xpad[0] * scale, xpad[1] * scale)
+        with profiling.span("wide.mix", device=self.device):
+            origins = chan._phase_tables(self._offs_hz, self.sample_rate,
+                                         self._wabs + wlo,
+                                         -(-length // BLOCK))
+            seg = chan._channelize_scan(xpad, api._to_device(origins,
+                                                             self.device),
+                                        self._ramps, self.ratio, new)
         return seg[0], seg[1], self._unit
+
+    def resident_lanes(self) -> tuple[int, torch.Tensor, torch.Tensor]:
+        """(first, re, im): a copy of the channelized samples that the
+        device mirror holds, re and im [n, L] float32 on the device, column
+        j at stream position first + j of every carrier (L = 0 before the
+        first upload).  Reads the mirror and changes nothing."""
+        if self._dev is None:
+            empty = torch.zeros(self._batch + (0,), device=self.device)
+            return self._dev_base, empty, empty.clone()
+        return (self._dev_base,
+                self._dev[0][..., :self._dev_len].clone(),
+                self._dev[1][..., :self._dev_len].clone())
 
     # ---- checkpoint ------------------------------------------------------
     def save_state(self, path: str) -> None:

@@ -9,10 +9,12 @@ Mixing runs on the device.  The mixer phase 2*pi*f*n needs |phase mod 1|
 precision far beyond float32 at n in the tens of millions, so the phase is
 decomposed:
   n = b*BLOCK + m,   phase(n) = origin[b] + ramp[m]   (each mod 1)
-with the [C, n_blocks] origins and the [C, BLOCK] ramp computed mod 1 in
-float64 on the host (tiny tables), and the O(C*N) work (broadcast add,
-cos/sin, complex multiply, anti-alias decimation) on the device.  Per-value
-phase error is <= 2^-24 cycles, orders below the channel noise floor.
+with the [C, n_blocks] origins and the [C, BLOCK] ramp computed mod 1 on
+the host (tiny tables: the ramp in float64, the origins in integer
+arithmetic for whole-Hz centres at a whole-Hz rate and in float64
+otherwise), and the O(C*N) work (broadcast add, cos/sin, complex multiply,
+anti-alias decimation) on the device.  Per-value phase error is <= 2^-24
+cycles, orders below the channel noise floor.
 
 The context (BLOCK samples each side, far exceeding the 16*ratio filter
 span) keeps the decimator's filter transients out of the output.  On a
@@ -76,10 +78,22 @@ def shift_host(x: np.ndarray, sample_rate: float, offset_hz: float,
     return (x.astype(np.complex128) * rot).astype(np.complex64)
 
 
-def _phase_tables(offsets_norm: np.ndarray, start: int, nb: int):
-    """Mod-1 f64 phase decomposition -> (origins [C, nb] f32, at `start`)."""
-    b = start + BLOCK * np.arange(nb, dtype=np.float64)
-    return np.mod(-offsets_norm[:, None] * b[None, :], 1.0) \
+def _phase_tables(offsets_hz, rate: float, start: int, nb: int) \
+        -> np.ndarray:
+    """Block origins -> [C, nb] f32: the mod-1 phase -f n / rate of each
+    centre f (Hz) at n = start + BLOCK b.  Centres of whole Hz at a whole-Hz
+    rate take integer arithmetic, ((-f n) mod rate) / rate rounded once to
+    f32: exact at any n, and the same wherever n mod rate is, so a stream's
+    origins lose no bits as its index grows and repeat wherever its centres'
+    phases do.  Other centres take f64 mod 1 (the JAX package's tables)."""
+    offs = np.asarray(offsets_hz, dtype=np.float64)
+    if float(rate).is_integer() and np.all(offs == np.round(offs)):
+        r = int(rate)
+        n = (int(start) % r + BLOCK * np.arange(nb, dtype=np.int64)) % r
+        return ((-offs.astype(np.int64)[:, None] * n[None, :]) % r / r) \
+            .astype(np.float32)
+    n = start + BLOCK * np.arange(nb, dtype=np.float64)
+    return np.mod(-(offs / rate)[:, None] * n[None, :], 1.0) \
         .astype(np.float32)
 
 
@@ -168,7 +182,8 @@ def channelize(x, sample_rate: float, center_offsets_hz,
     (`upload_padded`); it is read from the caller's array on every call.
     """
     ratio = _ratio(sample_rate)
-    offs = np.asarray(list(center_offsets_hz), dtype=np.float64) / sample_rate
+    offs_hz = np.asarray(list(center_offsets_hz), dtype=np.float64)
+    offs = offs_hz / sample_rate
     dev = x[0].device if isinstance(x, tuple) else resolve_device(device)
     with span("channelize", device=dev):
         uploaded = not isinstance(x, tuple)
@@ -184,8 +199,9 @@ def channelize(x, sample_rate: float, center_offsets_hz,
         n = int(xpad[0].shape[-1]) - 2 * BLOCK
         if uploaded:
             counts["upload_bytes"] += 8 * n
-        # block-origin phases, host f64 mod 1 (tiny): xpad[0] is sample -BLOCK
-        origins = _phase_tables(offs, -BLOCK, -(-(n + 2 * BLOCK) // BLOCK))
+        # block-origin phases on the host (tiny): xpad[0] is sample -BLOCK
+        origins = _phase_tables(offs_hz, sample_rate, -BLOCK,
+                                -(-(n + 2 * BLOCK) // BLOCK))
         origins, ramps = to_device(origins, dev), to_device(_ramp_table(offs),
                                                             dev)
         with span("channelize.mix", device=dev):

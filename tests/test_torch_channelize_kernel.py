@@ -67,7 +67,8 @@ def segment(x: np.ndarray, offs_norm: np.ndarray, start: int = -BLOCK,
     whose first sample has the wide index `start`: (xpad, origins,
     ramps)."""
     xpad = pair(x, device)
-    origins = chan._phase_tables(offs_norm, start,
+    # normalised offsets are centres in Hz at a rate of 1 Hz
+    origins = chan._phase_tables(offs_norm, 1.0, start,
                                  -(-x.size // BLOCK))
     return (xpad, torch.from_numpy(origins).to(device),
             torch.from_numpy(chan._ramp_table(offs_norm)).to(device))

@@ -184,7 +184,12 @@ def test_a_sound_small_run_is_correct():
 @pytest.mark.parametrize("fault", ["chunk_skipped", "streams_swapped",
                                    "answer_altered"])
 def test_a_fault_in_the_timed_path_is_not_correct(fault):
-    r = cpu_run(fault=fault, seconds=0.3)
+    # the skipped chunk is the window's fourth feed: a window long enough
+    # for a loaded host to reach it, and the feeds to show that it did
+    skip = fault == "chunk_skipped"
+    r = cpu_run(fault=fault, seconds=2.0 if skip else 0.3)
+    if skip:
+        assert r["info"]["feeds"] >= 4, r["info"]
     assert r["correct"] is False, r["checks"]
 
 

@@ -6,13 +6,14 @@ The band is the fixture of tests/test_wideband.py rebuilt from the port's
 synthesizer: 7.68 Msps, centres at -2.4 / 0 / +2.4 MHz, cell 99 (25 PRB) at
 the first and cell 250 (50 PRB) at the last, 12 frames.
 
-Tolerances: phase tables and `shift_host` are equal arrays; `channelize`
-rtol 1e-4 / atol 1e-5 on a unit-rms band (cos/sin and the FIR's float32
-sums differ in the last bits between XLA and PyTorch); f32 events, their
-order and `tracking_score` are exact; `mean_psr` rtol 1e-3 (the port
-channelizes other segments than the JAX class, which moves block boundaries
-by at most 2^-24 cycles of phase); the quantised transports must publish
-the same cell id, PRB, ports and CP.
+Tolerances: phase tables (the JAX package's, or the exact fraction for
+whole-Hz centres at large indices) and `shift_host` are equal arrays;
+`channelize` rtol 1e-4 / atol 1e-5 on a unit-rms band (cos/sin and the
+FIR's float32 sums differ in the last bits between XLA and PyTorch); f32
+events, their order and `tracking_score` are exact; `mean_psr` rtol 1e-3
+(the port channelizes other segments than the JAX class, which moves block
+boundaries by at most 2^-24 cycles of phase); the quantised transports must
+publish the same cell id, PRB, ports and CP.
 """
 
 import io
@@ -88,11 +89,31 @@ def port_f32(band):
 
 # --------------------------------------------------------- channelizer ----
 def test_phase_tables_and_host_shift_are_the_jax_packages():
-    offs = np.array([-2.4e6, 0.0, 1.23456e6, 7.1e6]) / 30.72e6
-    for start in (-9600, 0, 2 ** 31 + 12345, 10 ** 12 + 7):
-        np.testing.assert_array_equal(chan._phase_tables(offs, start, 34),
-                                      jchan._phase_tables(offs, start, 34))
+    """Centres off whole Hz take the JAX package's float64 tables, to the
+    bit.  Whole-Hz centres take integer arithmetic: the JAX package's
+    tables where float64 holds the phase exactly (small indices), and the
+    exact fraction rounded once to float32 where float64 no longer does."""
+    rate = 30.72e6
+    whole = np.array([-2.4e6, 0.0, 1.23456e6, 7.1e6])
+    off_grid = whole + np.array([0.5, 0.25, -0.125, 0.75])
+    starts = (-9600, 0, 2 ** 31 + 12345, 10 ** 12 + 7)
+    for start in starts:
+        np.testing.assert_array_equal(
+            chan._phase_tables(off_grid, rate, start, 34),
+            jchan._phase_tables(off_grid / rate, start, 34))
+    for start in starts[:2]:
+        np.testing.assert_array_equal(
+            chan._phase_tables(whole, rate, start, 34),
+            jchan._phase_tables(whole / rate, start, 34))
+    r = int(rate)
+    for start in starts:
+        exact = np.array([[np.float32(((-int(f) * (start + 9600 * b)) % r)
+                                      / r) for b in range(34)]
+                          for f in whole], dtype=np.float32)
+        np.testing.assert_array_equal(
+            chan._phase_tables(whole, rate, start, 34), exact)
     # the ramp is the table the JAX package builds inline
+    offs = whole / rate
     ramp = np.mod(-offs[:, None] * np.arange(9600, dtype=np.float64)[None],
                   1.0).astype(np.float32)
     np.testing.assert_array_equal(chan._ramp_table(offs), ramp)
